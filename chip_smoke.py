@@ -109,7 +109,25 @@ check it.
    148 x 5 kernel launches, a falling loss, and losses and parameters
    against a rerun with ``nd.sgd_update(w, g, out=w)``; step p50, peak
    memory, a profiled window.
-11. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+11. Module phase: the symbolic cell's model, widths and seeded weights
+   through the user's entry point, ``mx.mod.Module(sym,
+   context=mx.gpu(0)).fit`` on an ``NDArrayIter`` of 6 batches of 8 x
+   1024 seeded tokens, Adam at 3e-4, ``metric.Perplexity``.  Checks the
+   fused step on every batch, 24 B4 launches in every fit step, a falling
+   perplexity, the Adam parameters after 3 steps against a rerun through
+   the split path (``forward_backward`` + ``update`` through the Updater;
+   ``MOD_PARAM_TOL``), the gradients as SGD momentum from the same weights
+   against the split path after 3 steps and against a rerun with B4's
+   plain version after 1 (``SYM_GRAD_TOL``), and the metric reduced on
+   the device against the predictions copied to the host; fit step p50,
+   peak memory, a step timed with each metric, a profiled window (busy
+   share, kernels and optimizer-update launches a step), and the device
+   time of each form of the guarded Adam update.  Then
+   ``train_mnist.py``'s MLP (``symbols/mlp.py``) through ``Module.fit`` on
+   its synthetic digits with its settings: train
+   and validation accuracy above 0.95, and a batch with a NaN pixel
+   skipped (parameters, momentum and clocks bit for bit as before).
+12. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
    {...}}``.  Any failed check raises before that line (exit code 1).
 
 Float32 matmuls run in full fp32 (TF32 off) so the logits checks compare
@@ -1742,6 +1760,404 @@ def symbolic_phase(dev, card):
     return out
 
 
+# -- the Module path: mx.mod.Module.fit ---------------------------------------
+
+def synthetic_digits(n, seed=0):
+    """``example/image-classification/train_mnist.py``'s synthetic digit
+    set (a copy: the port does not import the example): class k is k + 1
+    bright bars at distinct rows plus noise.  Returns ``(labels, images
+    [n, 28, 28])``, float32."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, 10, n)
+    x = rng.uniform(0, 0.15, (n, 28, 28)).astype(np.float32)
+    for i, cls in enumerate(y):
+        for r in (np.arange(cls + 1) * 28) // 10:
+            x[i, r:r + 2, 4:24] += 0.8
+    return y.astype(np.float32), np.clip(x, 0, 1)
+
+
+def mnist_mlp(mx, num_classes=10):
+    """``symbols/mlp.py`` of the example (128-64-10, relu), built with
+    ``mx``."""
+    data = mx.sym.Flatten(data=mx.sym.Variable("data"))
+    fc1 = mx.sym.FullyConnected(data=data, name="fc1", num_hidden=128)
+    act1 = mx.sym.Activation(data=fc1, name="relu1", act_type="relu")
+    fc2 = mx.sym.FullyConnected(data=act1, name="fc2", num_hidden=64)
+    act2 = mx.sym.Activation(data=fc2, name="relu2", act_type="relu")
+    fc3 = mx.sym.FullyConnected(data=act2, name="fc3",
+                                num_hidden=num_classes)
+    return mx.sym.SoftmaxOutput(data=fc3, name="softmax")
+
+
+#: the Module cell: the symbolic cell's model, widths and seeded weights
+#: through ``mx.mod.Module.fit``: 6 batches of B 8 x T 1024 seeded random
+#: tokens, Adam at 3e-4 (train_gpt.py's), fp32 with TF32 off.  The tokens
+#: follow Zipf's law over the vocabulary (p(rank r) ~ 1 / (r + 1), as a
+#: text's unigrams do): with uniform tokens the only thing 5 updates can
+#: learn is a narrower logit spread, about 2% of perplexity, against about
+#: 1% of batch-to-batch noise between two 8192-token batches
+MOD_BATCHES, MOD_LR, MOD_SPLIT_STEPS, MOD_PROFILE_STEPS = 6, 3e-4, 3, 3
+#: the gradients of the fused step against the split path's
+#: (forward_backward + update through the Updater) over 3 steps, and
+#: against a rerun of the first step with B4's plain version: both runs
+#: with SGD at MOD_SGD_LR and momentum 0.9 from the same weights, whose
+#: momentum after n steps is -lr times the momentum-weighted sum of the
+#: n gradients (rescale_grad and any loss scale included), held per tensor
+#: at SYM_GRAD_TOL of its max |m_ref| as the symbolic phase holds
+#: gradients.  The lr keeps 3 steps' weight changes small (so the later
+#: gradients are taken at nearly the same weights on both sides); the
+#: comparison does not depend on it
+MOD_SGD_LR = 1e-5
+#: the fused Adam's parameters against the split path's after the same 3
+#: steps of the fit: both run the same update arithmetic on gradients
+#: equal up to rounding (a repeat differs by 4.5e-8 of max |g|), but Adam
+#: moves every element by about lr whatever its gradient's size, so an
+#: element whose gradient lies within that rounding of zero moves by up to
+#: lr (3e-4) either way.  Held: in every tensor, the share of elements off
+#: by more than MOD_PARAM_TOL of the tensor's max |p| is at most
+#: MOD_NOISE_SHARE (a fault in the update moves nearly every element; the
+#: gradients themselves are held by the SGD check above).  Left out: the
+#: key third of each block's qkv bias, whose true gradient is zero (a key
+#: bias adds the same q . b_k to every score of a query row, which the
+#: softmax removes), so all of it is such noise (ROADMAP.md queue C,
+#: properties of the reference)
+MOD_PARAM_TOL, MOD_NOISE_SHARE = 1e-4, 1e-3
+#: timed calls of each form of the guarded Adam update on the GPT's
+#: parameters
+MOD_GUARD_REPS = 10
+#: train_mnist.py's MLP run (its settings) and the bar of
+#: tests/test_examples.py
+MNIST_EXAMPLES, MNIST_EPOCHS, MNIST_BATCH, MNIST_ACC = 1200, 2, 64, 0.95
+#: kernels of the optimizer update in a profile: the multi-tensor kernels
+#: and the norm reduction of the guard
+UPDATE_KERNELS = ("multi_tensor", "foreach", "lpnorm")
+
+
+def param_diff(got, want, units):
+    """``(share, err, name)`` of the worst tensor: the share of its
+    elements off by more than MOD_PARAM_TOL of its max |p_ref|, and its
+    max |p - p_ref| / max |p_ref|; the key third of each qkv bias
+    (``units`` wide) left out."""
+    worst = (0.0, 0.0, "")
+    for n, w in want.items():
+        diff = (got[n] - w).abs() / w.abs().max()
+        if n.endswith("_qkv_bias"):
+            diff[units:2 * units] = 0
+        share = (diff > MOD_PARAM_TOL).float().mean().item()
+        worst = max(worst, (share, diff.max().item(), n))
+    return worst
+
+
+def mod_params(mod):
+    """The bound parameters of ``mod`` (device clones)."""
+    return {n: mod._exec.arg_dict[n].data.clone() for n in mod._param_names}
+
+
+def mod_momentum(mod):
+    """The momentum of every parameter by name, from the fused state or
+    the Updater's (the fused state is flushed into the Updater first)."""
+    mod._fused.flush()
+    return {n: mod._updater.states[i]
+            for i, n in enumerate(mod._param_names)}
+
+
+def module_gpt_run(mx, sym, params, batches, dev, steps, split=False,
+                   sgd=False):
+    """A fresh Module on ``dev`` with ``params``, Adam at MOD_LR (``sgd``:
+    SGD at MOD_SGD_LR with momentum 0.9), through ``steps`` batches: fused
+    ``fit_step`` or the split pair."""
+    mod = mx.mod.Module(sym, context=dev)
+    mod.bind(data_shapes=[("data", (SYM_B, SYM_T))],
+             label_shapes=[("softmax_label", (SYM_B, SYM_T))])
+    mod.init_params(arg_params=params)
+    if sgd:
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": MOD_SGD_LR, "momentum": 0.9})
+    else:
+        mod.init_optimizer(optimizer="adam",
+                           optimizer_params={"learning_rate": MOD_LR})
+    for b in batches[:steps]:
+        if split:
+            mod.forward_backward(b)
+            mod.update()
+        else:
+            mod.fit_step(b)
+    torch.cuda.synchronize()
+    check(mod._fused.active != split, "module rerun: the %s path did not "
+          "run" % ("split" if split else "fused"))
+    return mod
+
+
+def module_phase(dev, card):
+    """``mx.mod.Module.fit`` on the card: the symbolic cell's GPT at full
+    width (24 B4 launches a fit step), then train_mnist.py's MLP and a
+    skipped NaN batch.  Returns the phase's numbers and B4's count."""
+    from torch.profiler import ProfilerActivity, profile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import optimizer_ops
+    n_ln = 2 * SYM_LAYERS
+    sym = build_gpt_sym(mx, SYM_LAYERS, SYM_UNITS, SYM_HEADS, SYM_T,
+                        SYM_VOCAB)
+    shapes = {"data": (SYM_B, SYM_T), "softmax_label": (SYM_B, SYM_T)}
+    params = sym_params(sym, shapes, 0, dev)
+    zipf = 1.0 / np.arange(1, VOCAB + 1)
+    toks = np.random.default_rng(5).choice(
+        VOCAB, (MOD_BATCHES * SYM_B, SYM_T + 1), p=zipf / zipf.sum())
+    train = mx.io.NDArrayIter(toks[:, :-1].astype(np.float32),
+                              toks[:, 1:].astype(np.float32),
+                              batch_size=SYM_B)
+    batches = list(train)
+    train.reset()
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    steps, snaps = [], {}
+    fit_step = mod.fit_step
+
+    def timed_fit_step(batch):
+        # host clock around a synced step; B4's count read around it
+        torch.cuda.synchronize()
+        ln_count(reset=True)
+        t = time.perf_counter()
+        fit_step(batch)
+        torch.cuda.synchronize()
+        # the split path's update() drops the fused step
+        steps.append({"s": time.perf_counter() - t,
+                      "fused": mod._fused.active, "b4": ln_count()})
+        if len(steps) in (1, MOD_SPLIT_STEPS):
+            snaps[len(steps)] = mod_params(mod)
+
+    mod.fit_step = timed_fit_step
+    ppl = []
+    metric = mx.metric.Perplexity(None)
+
+    def per_batch(param):
+        # the batch's own perplexity from the running sums
+        m = param.eval_metric
+        prev = ppl[-1][1:] if ppl else (0.0, 0)
+        ppl.append((math.exp((m.sum_metric - prev[0])
+                             / (m.num_inst - prev[1])),
+                    m.sum_metric, m.num_inst))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mod.fit(train, optimizer="adam",
+            optimizer_params={"learning_rate": MOD_LR}, eval_metric=metric,
+            num_epoch=1, arg_params=params, batch_end_callback=per_batch)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out = {"fit_s": fit_s,
+           "step_ms": [st["s"] * 1e3 for st in steps],
+           "fit_step_p50_ms": statistics.median(st["s"] for st in steps)
+           * 1e3,
+           "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+           "perplexity": [p[0] for p in ppl],
+           "launches": sum(st["b4"] for st in steps)}
+    check(len(steps) == MOD_BATCHES and all(st["fused"] for st in steps),
+          "module: fit took the fused step on %d of %d batches"
+          % (sum(st["fused"] for st in steps), MOD_BATCHES))
+    check([st["b4"] for st in steps] == [n_ln] * MOD_BATCHES,
+          "module: B4 launches per fit step %r, want %d each"
+          % ([st["b4"] for st in steps], n_ln))
+    check(all(math.isfinite(p) for p in out["perplexity"]),
+          "module: non-finite perplexity %r" % out["perplexity"])
+    check(out["perplexity"][-1] < out["perplexity"][0],
+          "module: perplexity did not fall: %r" % out["perplexity"])
+    print("module [%s]: Module.fit on the post-LN gpt %d x %d, vocab %d, "
+          "B %d x T %d, %d batches, Adam %g: fit step p50 %.2f ms (steps "
+          "%s ms), fit %.1f s, peak device memory %.1f MiB; %d B4 launches "
+          "(%d a step); perplexity by batch %s"
+          % (card, SYM_LAYERS, SYM_UNITS, SYM_VOCAB, SYM_B, SYM_T,
+             MOD_BATCHES, MOD_LR, out["fit_step_p50_ms"],
+             ", ".join("%.1f" % x for x in out["step_ms"]), fit_s,
+             out["peak_mib"], out["launches"], n_ln,
+             ", ".join("%.1f" % x for x in out["perplexity"])))
+
+    # the metric on the device against the predictions copied to the host
+    # (the reference's numpy metrics read host arrays): one step with its
+    # metric update each way, then both ways on the same outputs
+    last = batches[-1]
+
+    def host_outputs():
+        return [o.data.cpu() for o in mod.get_outputs()]
+
+    def preds(where):
+        return host_outputs() if where == "host" else mod.get_outputs()
+
+    for where in ("device", "host"):
+        m = mx.metric.Perplexity(None)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fit_step(last)
+        m.update(last.label, preds(where))
+        torch.cuda.synchronize()
+        out["step_with_%s_metric_ms" % where] = \
+            (time.perf_counter() - t) * 1e3
+    for where in ("device", "host"):
+        m = mx.metric.Perplexity(None)
+        m.update(last.label, preds(where))
+        out["metric_%s" % where] = m.get()[1]
+    print("module [%s]: a fit step with its Perplexity update %.2f ms with "
+          "the metric reduced on the device, %.2f ms with the [%d, %d, %d] "
+          "predictions copied to the host first; perplexity %.6f vs %.6f "
+          "on the same outputs"
+          % (card, out["step_with_device_metric_ms"],
+             out["step_with_host_metric_ms"], SYM_B, SYM_T, SYM_VOCAB,
+             out["metric_device"], out["metric_host"]))
+    check(abs(out["metric_device"] / out["metric_host"] - 1) < 1e-5,
+          "module: device and host perplexity differ")
+
+    # a profiled window of fused steps (the main path: B4 counted)
+    ln_count(reset=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches[:MOD_PROFILE_STEPS]:
+            fit_step(b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    n = ln_count()
+    check(n == n_ln * MOD_PROFILE_STEPS, "module profile: %d B4 launches "
+          "in %d steps" % (n, MOD_PROFILE_STEPS))
+    out["launches"] += n
+    out["profile"] = profile_summary(prof, wall_us, MOD_PROFILE_STEPS,
+                                     "profile module [%s]: fit step" % card)
+    from torch.autograd import DeviceType
+    upd = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA
+           and any(k in e.key for k in UPDATE_KERNELS)]
+    out["update_launches_per_step"] = sum(e.count for e in upd) \
+        / MOD_PROFILE_STEPS
+    out["update_ms_per_step"] = sum(e.self_device_time_total for e in upd) \
+        / MOD_PROFILE_STEPS / 1e3
+    print("profile module [%s]: the optimizer update %.1f launches a step "
+          "(multi-tensor kernels and the guard's norm), %.3f ms of device "
+          "time a step, for %d parameters"
+          % (card, out["update_launches_per_step"],
+             out["update_ms_per_step"], len(mod._param_names)))
+
+    # the two forms of the guarded Adam update on these parameters: the
+    # Module's (check, then update in place) and the Trainer's (update
+    # into temporaries, then a select on the device)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    wts = {n: mod._exec.arg_dict[n].data.clone() for n in mod._param_names}
+    grads = {n: torch.randn(w.shape, generator=gen, device=dev) * 1e-3
+             for n, w in wts.items()}
+    del mod, prof
+    init_state, apply_fn = optimizer_ops.make_fused_apply("adam", {})
+    for form, defer in (("check_then_update", False), ("select", True)):
+        guarded = optimizer_ops.make_guarded_apply(apply_fn, defer)
+        state = init_state(wts)
+        out["guard_%s_ms" % form] = device_ms(
+            lambda: guarded(wts, grads, state, MOD_LR, 0.0, 1.0, 1.0),
+            MOD_GUARD_REPS)
+        del state
+    n_params = len(wts)
+    del wts, grads
+    torch.cuda.empty_cache()
+    print("module [%s]: the guarded Adam update over the %d parameters, "
+          "device time a call: %.3f ms checked then applied in place (the "
+          "Module's), %.3f ms into temporaries and selected (the "
+          "Trainer's)" % (card, n_params,
+                          out["guard_check_then_update_ms"],
+                          out["guard_select_ms"]))
+
+    # the fused Adam against the split path from the same weights
+    split = module_gpt_run(mx, sym, params, batches, dev, MOD_SPLIT_STEPS,
+                           split=True)
+    out["share_vs_split"], out["params_vs_split"], split_at = param_diff(
+        mod_params(split), snaps[MOD_SPLIT_STEPS], SYM_UNITS)
+    del split, snaps
+    # the gradients: SGD momentum, fused against split and plain B4
+    fused = mod_momentum(module_gpt_run(mx, sym, params, batches, dev,
+                                        MOD_SPLIT_STEPS, sgd=True))
+    out["grads_vs_split"] = grad_rel_err(mod_momentum(module_gpt_run(
+        mx, sym, params, batches, dev, MOD_SPLIT_STEPS, split=True,
+        sgd=True)), fused)
+    del fused
+    first = mod_momentum(module_gpt_run(mx, sym, params, batches, dev, 1,
+                                        sgd=True))
+    with plain_ln():
+        out["grads_vs_plain_b4"] = grad_rel_err(mod_momentum(
+            module_gpt_run(mx, sym, params, batches, dev, 1, sgd=True)),
+            first)
+    del first
+    torch.cuda.empty_cache()
+    print("module [%s]: SGD momentum (the gradients times -lr) after %d "
+          "fused steps vs the split path: max |m - m_ref| %.3g of max "
+          "|m_ref|; after 1 vs plain B4: %.3g (limit SYM_GRAD_TOL %g).  "
+          "Adam parameters after %d fused steps vs the split path: at most "
+          "%.3g of a tensor's elements (%s) off by more than %g of its max "
+          "|p|, the worst by %.3g (qkv bias key thirds left out; share "
+          "limit %g)"
+          % (card, MOD_SPLIT_STEPS, out["grads_vs_split"],
+             out["grads_vs_plain_b4"], SYM_GRAD_TOL, MOD_SPLIT_STEPS,
+             out["share_vs_split"], split_at, MOD_PARAM_TOL,
+             out["params_vs_split"], MOD_NOISE_SHARE))
+    check(out["grads_vs_split"] <= SYM_GRAD_TOL,
+          "module: fused gradients differ from the split path's")
+    check(out["grads_vs_plain_b4"] <= SYM_GRAD_TOL,
+          "module: the first step's gradients differ from plain B4's")
+    check(out["share_vs_split"] <= MOD_NOISE_SHARE,
+          "module: fused Adam steps differ from the split path")
+    out["mnist"] = mnist_module_run(mx, card)
+    return out
+
+
+def mnist_module_run(mx, card):
+    """train_mnist.py's MLP through ``Module.fit`` on the card with the
+    example's settings; then one batch with a NaN pixel, which the guard
+    must skip."""
+    torch.manual_seed(0)
+    ty, tx = synthetic_digits(MNIST_EXAMPLES, seed=0)
+    vy, vx = synthetic_digits(MNIST_EXAMPLES // 6, seed=1)
+    train = mx.io.NDArrayIter(tx[:, None], ty, MNIST_BATCH, shuffle=True,
+                              rng=np.random.RandomState(0))
+    val = mx.io.NDArrayIter(vx[:, None], vy, MNIST_BATCH)
+    mod = mx.mod.Module(mnist_mlp(mx), context=mx.gpu(0))
+    acc = mx.metric.Accuracy()
+    t = time.perf_counter()
+    mod.fit(train, eval_data=val, eval_metric=acc, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.05, "momentum": 0.9,
+                              "wd": 1e-4},
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            num_epoch=MNIST_EPOCHS)
+    torch.cuda.synchronize()
+    out = {"fit_s": time.perf_counter() - t, "train_acc": acc.get()[1],
+           "val_acc": mod.score(val, "acc")[0][1],
+           "fused": mod._fused.active}
+    check(out["fused"], "mnist: the fused step never ran")
+    check(out["train_acc"] > MNIST_ACC and out["val_acc"] > MNIST_ACC,
+          "mnist: accuracy train %.4f, validation %.4f (want > %g)"
+          % (out["train_acc"], out["val_acc"], MNIST_ACC))
+    train.reset()
+    batch = next(iter(train))
+    bad = mx.io.DataBatch([batch.data[0].copy()], batch.label)
+    bad.data[0][0, 0, 14, 14] = float("nan")
+    before = mod_params(mod)
+    state = {n: st.clone() for n, st in mod._fused.state.items()}
+    opt = mod._optimizer
+    clocks = (dict(opt._index_update_count), opt.num_update)
+    mod.fit_step(bad)
+    torch.cuda.synchronize()
+    after = mod_params(mod)
+    out["nan_batch_skipped"] = (
+        all(torch.equal(after[n], before[n]) for n in before)
+        and all(torch.equal(mod._fused.state[n], st)
+                for n, st in state.items())
+        and (dict(opt._index_update_count), opt.num_update) == clocks
+        and mod._consec_guard_skips == 1)
+    print("mnist [%s]: train_mnist.py's MLP through Module.fit, %d "
+          "examples, %d epochs, batch %d: train accuracy %.4f, validation "
+          "%.4f in %.1f s; a NaN-pixel batch skipped (parameters, momentum "
+          "and clocks as before): %s"
+          % (card, MNIST_EXAMPLES, MNIST_EPOCHS, MNIST_BATCH,
+             out["train_acc"], out["val_acc"], out["fit_s"],
+             out["nan_batch_skipped"]))
+    check(out["nan_batch_skipped"], "mnist: the NaN batch was not skipped")
+    return out
+
+
 # -- imperative path: mx.nd + autograd, and mx.rtc user kernels -------------
 
 #: the user kernels of the imperative path, as a user of ``mx.rtc.CudaRtc``
@@ -2360,6 +2776,8 @@ def main():
     torch.cuda.empty_cache()
     rtc_cases = rtc_kernel_phase(dev)
     imperative = imperative_phase(dev, card)
+    torch.cuda.empty_cache()
+    module = module_phase(dev, card)
 
     b5 = "mxnet_tpu/ops/pallas/paged_attention.py:73"
     b6 = "mxnet_tpu/ops/pallas/paged_attention.py:231"
@@ -2395,11 +2813,11 @@ def main():
         kernels.append(kernel_entry(name, fa_ref % line, flash[name],
                                     flash_launches[name], flash[name][0],
                                     source=fa_src))
-    check(symbolic["launches"] > 0, "layer_norm_residual never launched "
-          "on its path")
+    check(symbolic["launches"] > 0 and module["launches"] > 0,
+          "layer_norm_residual never launched on its path")
     kernels.append(kernel_entry(
         "layer_norm_residual", "mxnet_tpu/ops/pallas/layer_norm.py:56",
-        ln_cases, symbolic["launches"], ln_cases[0],
+        ln_cases, symbolic["launches"] + module["launches"], ln_cases[0],
         source="mxnet_tpu_torch/csrc/layer_norm.cu"))
     # B8: the user's sgd_update, launched by the imperative path; its
     # cases are both user kernels'.  library_ms is torch's fused SGD call;
@@ -2414,7 +2832,7 @@ def main():
     kernels.append(entry)
     print(json.dumps({"slice": served, "spec": spec, "int8": int8,
                       "train": train, "symbolic": symbolic,
-                      "imperative": imperative}))
+                      "imperative": imperative, "module": module}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

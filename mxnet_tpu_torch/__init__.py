@@ -14,20 +14,30 @@ graphs (``mx.sym`` -> ``simple_bind`` -> graph passes -> :class:`Executor`)
 with the fused LayerNorm-residual kernel.  ``mx.nd`` is the imperative
 API (every registered op as ``nd.<op>``, the tape in :mod:`autograd`),
 and :mod:`rtc` compiles user kernels at run time (``CudaRtc``: CUDA C++
-built by ``nvcc``).
+built by ``nvcc``).  ``mx.mod.Module`` trains a symbol through ``fit``
+(the fused, guarded step; :mod:`io` iterators, :mod:`metric`,
+:mod:`lr_scheduler`, :mod:`callback`, :mod:`monitor`, checkpoints in
+:mod:`model`).
 """
 from . import (autograd, base, context, gluon, initializer, ndarray, ops,
                optimizer, serving)
 from . import attribute, name, symbol, graph, executor, rtc
+from . import (callback, io, lr_scheduler, metric, model, module,
+               monitor, precision)
 from .attribute import AttrScope
 from .base import MXNetError
-from .context import cpu, gpu
+from .context import Context, cpu, current_context, gpu, num_gpus
 from .executor import Executor
+from .monitor import Monitor
 
 nd = ndarray
 sym = symbol
+mod = module
+init = initializer
 
-__all__ = ["autograd", "base", "context", "gluon", "initializer",
+__all__ = ["autograd", "base", "context", "gluon", "initializer", "init",
            "ndarray", "nd", "ops", "optimizer", "serving", "attribute",
-           "name", "symbol", "sym", "graph", "executor", "rtc", "AttrScope",
-           "Executor", "MXNetError", "cpu", "gpu"]
+           "name", "symbol", "sym", "graph", "executor", "rtc", "callback",
+           "io", "lr_scheduler", "metric", "model", "module", "mod",
+           "monitor", "precision", "AttrScope", "Context", "Executor", "MXNetError",
+           "Monitor", "cpu", "current_context", "gpu", "num_gpus"]

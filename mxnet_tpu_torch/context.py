@@ -1,26 +1,99 @@
-"""Device naming for the PyTorch package.
+"""Device naming for the PyTorch package (counterpart of
+``mxnet_tpu/context.py``).
 
 ``cpu()`` and ``gpu(i)`` are plain ``torch.device`` values.  The default
 device is the first CUDA card; with no card there is no default, so an
 entry point that was not told where to run raises instead of quietly
 running on the host.  Callers that want the CPU (the parity tests) pass
-``device="cpu"`` explicitly.
+``device="cpu"`` explicitly, or open a scope::
+
+    with mx.Context("cpu"):
+        mod = mx.mod.Module(sym)        # binds on the host
+
+A :class:`Context` names a device the reference's way (``"cpu"`` or
+``"gpu"`` and an index) and, as a ``with`` block, makes it the default of
+every entry point called inside (:func:`current_context`,
+:func:`resolve_device`).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from .base import MXNetError
 
-__all__ = ["cpu", "gpu", "default_device", "resolve_device"]
+__all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
+           "default_device", "resolve_device"]
 
 
-def cpu():
+class Context:
+    """A logical device: ``Context("cpu")``, ``Context("gpu", 1)``, or any
+    ``torch.device``/Context to copy.  ``device`` is its torch device."""
+
+    _scope = threading.local()
+
+    def __init__(self, device_type, device_id=0):
+        if isinstance(device_type, Context):
+            device_type = device_type.device
+        if isinstance(device_type, torch.device):
+            device_id = device_type.index or 0
+            device_type = device_type.type
+        if device_type == "cuda":
+            device_type = "gpu"
+        if device_type not in ("cpu", "gpu"):
+            raise MXNetError("unknown device type %r (want cpu or gpu)"
+                             % (device_type,))
+        self.device_type = device_type
+        self.device_id = int(device_id)
+        self._old = None
+
+    @property
+    def device(self):
+        if self.device_type == "cpu":
+            return torch.device("cpu")
+        return torch.device("cuda", self.device_id)
+
+    def __eq__(self, other):
+        if isinstance(other, (Context, torch.device)):
+            return self.device == Context(other).device
+        return NotImplemented
+
+    def __hash__(self):
+        return hash((self.device_type, self.device_id))
+
+    def __repr__(self):
+        return "%s(%d)" % (self.device_type, self.device_id)
+
+    def __enter__(self):
+        self._old = getattr(Context._scope, "value", None)
+        Context._scope.value = self
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        Context._scope.value = self._old
+
+
+def cpu(device_id=0):
     return torch.device("cpu")
 
 
 def gpu(device_id=0):
     return torch.device("cuda", int(device_id))
+
+
+def num_gpus():
+    """CUDA cards this process sees."""
+    return torch.cuda.device_count()
+
+
+def current_context():
+    """The innermost ``with Context(...)`` scope's context, else the first
+    CUDA card; raises when there is neither."""
+    ctx = getattr(Context._scope, "value", None)
+    if ctx is not None:
+        return ctx
+    return Context(default_device())
 
 
 def default_device():
@@ -33,10 +106,13 @@ def default_device():
 
 
 def resolve_device(device=None):
-    """``None`` -> :func:`default_device`; anything else through
-    ``torch.device`` (``"cpu"``, ``"cuda:1"``, a ``torch.device``)."""
+    """``None`` -> the ``with Context`` scope's device, else
+    :func:`default_device`; a :class:`Context` -> its device; anything else
+    through ``torch.device`` (``"cpu"``, ``"cuda:1"``, a ``torch.device``)."""
     if device is None:
-        return default_device()
+        device = current_context()
+    if isinstance(device, Context):
+        device = device.device
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise MXNetError("device %s requested but no CUDA device is "

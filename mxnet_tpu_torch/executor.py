@@ -14,11 +14,18 @@ programs become here:
   ``grad_req``; without a preceding training forward it reruns the
   forward first, as the reference's fused program does;
 - aux states are bound and read by name; no ported op updates one yet
-  (the write-back comes with BatchNorm).
+  (the write-back comes with BatchNorm);
+- :meth:`make_fit_step` is the fused train step of ``Module.fit``: one
+  eager pass of the training forward, ``torch.autograd.grad`` on the
+  updated parameters and the guarded multi-tensor optimizer update, in
+  place (the reference traces all three into one donated XLA program);
+- a monitor installed with ``monitor_all`` taps every node's output of
+  the user's (unrewritten) graph, run node by node as the reference's
+  interpret mode runs it.
 
-Not ported yet: mesh/SPMD placement, ``ctx_group`` staging, the monitor,
-``make_fit_step`` (the fused donated fit step and its AOT cache),
-``reshape`` and ``forward_backward``.  The reference's per-program
+Not ported yet: mesh/SPMD placement and ``ctx_group`` staging (the
+multi-device slice), and the reference's ZeRO placements, AOT cache of
+the fit step and its cost telemetry.  The reference's per-program
 dispatch counter has no counterpart: a forward here is one eager pass of
 kernel launches.
 """
@@ -29,7 +36,7 @@ import logging
 import torch
 
 from .base import MXNetError
-from .ndarray.ndarray import NDArray
+from .ndarray.ndarray import NDArray, zeros
 
 __all__ = ["Executor"]
 
@@ -42,6 +49,11 @@ class Executor:
         self.grad_dict = dict(args_grad) if args_grad else {}
         self.aux_dict = dict(aux_states) if aux_states else {}
         self._arg_names = symbol.list_arguments()
+        self._aux_names = symbol.list_auxiliary_states()
+        self._output_names = symbol.list_outputs()
+        self._monitor_callback = None
+        self._monitor_all = False
+        self._interp_plan = None
         if isinstance(grad_req, str):
             self._grad_req = {n: grad_req for n in self._arg_names}
         elif isinstance(grad_req, (list, tuple)):
@@ -100,7 +112,7 @@ class Executor:
             if id(node) in last_use and id(node) not in keep:
                 drop_after[last_use[id(node)]].append(id(node))
 
-        def plan(arg_vals, aux_vals, train):
+        def plan(arg_vals, aux_vals, train, tap=None):
             vals = {}
             for i, node in enumerate(nodes):
                 if node.is_var:
@@ -110,6 +122,8 @@ class Executor:
                 inputs = [vals[id(inp)][idx] for inp, idx in node.inputs]
                 vals[id(node)], _ = apply_node(node, inputs, train, device)
                 del inputs
+                if tap is not None:
+                    tap(node, vals[id(node)])
                 for dead in drop_after[i]:
                     del vals[dead]
             return [vals[id(n)][i] for n, i in heads]
@@ -131,8 +145,26 @@ class Executor:
                   for n in self._diff_names()}
         args = {k: leaves.get(k, v.data) for k, v in self.arg_dict.items()}
         with torch.enable_grad():
-            outs = self._plan(args, self._raw_aux(), True)
+            outs = self._run(args, True)
         return outs, leaves
+
+    def _run(self, args, train):
+        """The plan on ``args``; under a ``monitor_all`` monitor, the
+        user's unrewritten graph node by node with every node's outputs
+        handed to the callback (the reference's interpret mode)."""
+        if self._monitor_callback is None or not self._monitor_all:
+            return self._plan(args, self._raw_aux(), train)
+        if self._interp_plan is None:
+            self._interp_plan = self._plan \
+                if self._opt_symbol is self._symbol \
+                else self._build_plan(self._symbol)
+
+        def tap(node, vis):
+            for j, v in enumerate(vis):
+                suffix = "_output" if len(vis) == 1 else "_output%d" % j
+                self._monitor_callback(node.name + suffix,
+                                       NDArray(v.detach(), self._ctx))
+        return self._interp_plan(args, self._raw_aux(), train, tap=tap)
 
     # -- execution ---------------------------------------------------------
     def forward(self, is_train=False, **kwargs):
@@ -151,8 +183,11 @@ class Executor:
         else:
             args = {k: v.data for k, v in self.arg_dict.items()}
             with torch.no_grad():
-                outs = self._plan(args, self._raw_aux(), bool(is_train))
+                outs = self._run(args, bool(is_train))
         self.outputs = [NDArray(o.detach(), self._ctx) for o in outs]
+        if self._monitor_callback is not None and not self._monitor_all:
+            for name, arr in zip(self._output_names, self.outputs):
+                self._monitor_callback(name, arr)
         return self.outputs
 
     def backward(self, out_grads=None, is_train=True):
@@ -209,3 +244,96 @@ class Executor:
                 elif not allow_extra_params:
                     raise MXNetError("found name %r that is not in the %ss"
                                      % (name, kind))
+
+    def forward_backward(self, out_grads=None, **kwargs):
+        """A training forward then :meth:`backward` (the reference's one
+        program for both); returns ``outputs``."""
+        self.forward(is_train=True, **kwargs)
+        self.backward(out_grads)
+        return self.outputs
+
+    def make_fit_step(self, update_names, guarded_apply):
+        """The fused train step of ``Module.fit``.
+
+        ``update_names`` -- the ``grad_req="write"`` parameters the step
+        updates; ``guarded_apply`` -- the guarded tree-wide update
+        (``ops.optimizer_ops.make_guarded_apply``).
+
+        Returns ``step(param_vals, state, other_vals, lr, wd, rescale, t)
+        -> (outs, ok)``: the training forward through the bound plan (aux
+        states as bound), the gradients of every output (seeded with ones,
+        as :meth:`backward`'s default) by ``torch.autograd.grad`` on the
+        updated parameters, then the guarded update, which writes
+        ``param_vals`` and ``state`` in place unless a gradient is
+        non-finite; ``ok`` is its verdict.  Nothing is written into
+        ``grad_dict``.  The reference's step, one donated XLA program,
+        takes and returns the optimizer state and aux values as well
+        (``step(param_vals, opt_state, other_vals, aux_vals, lr, wd,
+        rescale, t, poison) -> (outs, new_params, new_state, new_aux,
+        ok)``); in place and eager, those are the same tensors."""
+        update_names = tuple(update_names)
+
+        def step(param_vals, state, other_vals, lr, wd, rescale, t):
+            leaves = {n: param_vals[n].detach().requires_grad_()
+                      for n in update_names}
+            args = dict(other_vals)
+            args.update(leaves)
+            with torch.enable_grad():
+                outs = self._plan(args, self._raw_aux(), True)
+            heads = [o for o in outs if o.requires_grad]
+            grads = torch.autograd.grad(
+                heads, [leaves[n] for n in update_names],
+                [torch.ones_like(o) for o in heads], allow_unused=True) \
+                if heads else [None] * len(update_names)
+            grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                     for n, g in zip(update_names, grads)}
+            outs = [o.detach() for o in outs]
+            del heads, leaves
+            ok = guarded_apply({n: param_vals[n] for n in update_names},
+                               grads, state, lr, wd, rescale, t)
+            return outs, ok
+
+        return step
+
+    # -- parameter management ----------------------------------------------
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._arg_names]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) for n in self._arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._aux_names]
+
+    @property
+    def output_dict(self):
+        return dict(zip(self._output_names, self.outputs))
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """``callback(name, NDArray)`` on the outputs of every forward;
+        with ``monitor_all`` on every node's outputs (slow: the user's
+        graph node by node)."""
+        self._monitor_callback = callback
+        self._monitor_all = monitor_all
+
+    def reshape(self, partial_shaping=False, allow_up_sizing=False,
+                **kwargs):
+        """A new executor for the shapes in ``kwargs``: arrays whose shape
+        did not change are shared, the others start at zeros."""
+        arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
+
+        def kept(cur, shape):
+            return cur if cur.shape == tuple(shape) else \
+                zeros(shape, ctx=self._ctx, dtype=cur.dtype)
+        new_args = {n: kept(self.arg_dict[n], s)
+                    for n, s in zip(self._arg_names, arg_shapes)}
+        new_aux = {n: kept(self.aux_dict[n], s)
+                   for n, s in zip(self._aux_names, aux_shapes)}
+        args_grad = {n: zeros(a.shape, ctx=self._ctx, dtype=a.dtype)
+                     for n, a in new_args.items()
+                     if self._grad_req.get(n, "null") != "null"}
+        return Executor(self._symbol, self._ctx, new_args, args_grad,
+                        self._grad_req, new_aux)

@@ -1,4 +1,4 @@
-"""Gluon Trainer (the reference's ``mxnet_tpu/gluon/trainer.py:25-149``).
+"""Gluon Trainer (the reference's ``mxnet_tpu/gluon/trainer.py``).
 
 ``Trainer(params, optimizer, optimizer_params)`` applies an
 :class:`~mxnet_tpu_torch.optimizer.Optimizer` to the parameters of a
@@ -10,11 +10,24 @@ block, as the Gluon loop drives it::
     loss.backward()
     trainer.step(batch_size)
 
-Two laws of the reference, with their torch meaning:
+Laws of the reference, with their torch meaning:
 
-- the reference applies the whole step as ONE donated XLA program over
-  the parameter tree; here :meth:`Trainer.step` loops over the parameters
-  and updates each in place (PyTorch runs eagerly);
+- SGD, SGD with momentum and Adam update every parameter as ONE
+  multi-tensor update (``ops.optimizer_ops.make_fused_apply``,
+  ``torch._foreach_*`` over the parameter list, held with its state by
+  :class:`~mxnet_tpu_torch.optimizer.FusedUpdate`, as ``Module.fit_step``
+  holds it) where the reference runs one donated XLA program over the
+  parameter tree; other optimizers keep
+  the per-parameter loop through an :class:`~mxnet_tpu_torch.optimizer.
+  Updater`.  State moves between the two forms when the path changes.
+- The fused update runs under the divergence guard
+  (``make_guarded_apply``): when any gradient, after ``rescale_grad`` and
+  clipping, is NaN or Inf, every parameter and optimizer state stays bit
+  for bit as it was and the optimizer clocks rewind.  The verdict is a
+  device scalar read one step late (at the top of the next ``step``, or
+  when state is saved or handed over), so ``step`` never waits for the
+  device; after ``MXTPU_MAX_CONSECUTIVE_SKIPS`` consecutive skips the next
+  ``step`` raises ``MXNetError``.
 - MXNet's default ``grad_req="write"`` overwrites every gradient on each
   ``backward()``, while torch adds into ``.grad``: the Trainer therefore
   clears every gradient after its update (``.grad = None``), so step n
@@ -29,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from .. import optimizer as opt
+from ..ops.optimizer_ops import max_consecutive_skips, raise_skip_limit_error
 
 __all__ = ["Trainer"]
 
@@ -73,14 +87,41 @@ class Trainer:
         self._optimizer.set_wd_mult(
             {i: getattr(p, "wd_mult", 1.0)
              for i, p in enumerate(self._params)})
-        self._states = {}
+        self._updaters = opt.get_updater(self._optimizer)
+        # the fused update and its state; the verdict is read a step late
+        self._fused = opt.FusedUpdate(self._optimizer, self._updaters,
+                                      defer_verdict=True)
+
+    @property
+    def _consec_guard_skips(self):
+        return self._fused.streak
+
+    def set_precision(self, policy):
+        """Install a :class:`~mxnet_tpu_torch.precision.PrecisionPolicy`
+        (or None): its fingerprint keys the fused update, its loss
+        scaler's ``1 / scale`` joins ``rescale_grad`` and consumes the
+        (one step late) guard verdict."""
+        self._fused.resolve()
+        self._fused.precision = policy
+
+    @property
+    def learning_rate(self):
+        return self._optimizer.lr
+
+    def set_learning_rate(self, lr):
+        self._optimizer.lr = lr
 
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimizer step with gradients scaled by ``1 / batch_size``;
         every gradient is cleared after its update.  A trainable parameter
         without a gradient (none since the last step) raises unless
         ``ignore_stale_grad``, which skips it."""
+        self._fused.resolve()
+        limit = max_consecutive_skips()
+        if self._fused.streak >= limit:
+            raise_skip_limit_error(limit)
         self._optimizer.rescale_grad = self._scale / batch_size
+        live = []
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue                          # grad_req "null"
@@ -91,7 +132,48 @@ class Trainer:
                     "Gradient of Parameter `%s` has not been updated by "
                     "backward since last `step`; call step with "
                     "ignore_stale_grad=True to skip it" % self._names[i])
-            if i not in self._states:
-                self._states[i] = self._optimizer.create_state(i, p.data)
-            self._optimizer.update(i, p.data, p.grad, self._states[i])
+            live.append((i, p))
+        if not self._fused_step(live):
+            for i, p in live:
+                self._updaters(i, p.grad, p.data)
+        for _, p in live:
             p.grad = None
+
+    # -- fused multi-tensor step -------------------------------------------
+    def _fused_step(self, live):
+        """Update ``live`` as one guarded multi-tensor update.  Returns
+        False when the configuration cannot fuse (the caller then runs the
+        per-parameter loop, which starts from the fused state)."""
+        fused = self._fused
+        if self._optimizer.fused_kind() is None or \
+                len({id(p) for _, p in live}) != len(live):
+            fused.drop()
+            return False
+        if not live:
+            return True
+        keys = {i: str(i) for i, _ in live}
+        params = {keys[i]: p.data for i, p in live}
+        fused.configure(keys, params)
+        lr, wd, rescale, t = fused.begin()
+        fused.finish(fused.guarded(
+            params, {keys[i]: p.grad for i, p in live}, fused.state, lr, wd,
+            rescale, t))
+        return True
+
+    def _resolve_pending_verdict(self):
+        """Apply the previous fused step's verdict (skip streak and clock
+        rewind); the limit is checked at the top of :meth:`step`."""
+        self._fused.resolve()
+
+    def save_states(self, fname):
+        """The optimizer state (the Updater's pickle, fused state flushed
+        into it first), written atomically."""
+        from ..base import atomic_write
+        self._fused.flush()
+        atomic_write(fname, self._updaters.get_states())
+
+    def load_states(self, fname):
+        self._fused.drop(flush=False)   # re-seeded from the loaded states
+        with open(fname, "rb") as f:
+            self._updaters.set_states(f.read())
+        self._fused.streak = 0

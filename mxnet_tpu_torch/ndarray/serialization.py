@@ -20,10 +20,11 @@ Everything is little-endian, matching dmlc::Stream on x86.
 """
 from __future__ import annotations
 
-import os
 import struct
 
 import numpy as _np
+
+from ..base import atomic_write
 
 NDARRAY_V1_MAGIC = 0xF993FAC8
 NDARRAY_V2_MAGIC = 0xF993FAC9
@@ -216,13 +217,7 @@ def save_ndarray_list(fname, arrays, names):
     """Write the list container crash-safely: the bytes go to a temporary
     file beside ``fname``, are fsynced, then renamed over it, so the
     final path never holds a torn file."""
-    data = dumps_ndarray_list(arrays, names)
-    tmp = "%s.tmp.%d" % (fname, os.getpid())
-    with open(tmp, "wb") as f:
-        f.write(data)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, fname)
+    atomic_write(fname, dumps_ndarray_list(arrays, names))
 
 
 def load_ndarray_file(fname):

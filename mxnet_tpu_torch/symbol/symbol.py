@@ -10,10 +10,21 @@ learnable inputs are auto-created as variables with MXNet's names
 Shape and dtype inference runs the registered op bodies on ``meta``
 tensors (shapes and dtypes, no data), with per-op hints filling the
 shapes of parameter inputs (:mod:`.shape_hints`); the reference runs
-``jax.eval_shape`` over the same bodies.  ``tojson``/``load_json`` are not
-ported yet.
+``jax.eval_shape`` over the same bodies.
+
+``tojson``/``save`` and :func:`load_json`/:func:`load` read and write the
+reference's nnvm JSON (``nodes``/``arg_nodes``/``heads``, attribute values
+as strings) byte for byte as the JAX package does, so either package loads
+what the other wrote.  One difference: a loaded symbol keeps its hidden
+attribute keys (``__lr_mult__``, ``__init__``) as MXNet does, where the
+reference's ``load_json`` strips them to ``lr_mult`` and so drops them
+from the optimizer and the initializer (fault C5 in ``ROADMAP.md``).  The
+graph passes' rewritten symbol lives in the executor only: ``tojson``
+writes the symbol the user built.
 """
 from __future__ import annotations
+
+import json
 
 import numpy as _np
 import torch
@@ -25,7 +36,7 @@ from ..ndarray.ndarray import to_numpy_dtype, to_torch_dtype
 from ..ops import get_op
 from ..ops.registry import _OP_REGISTRY
 
-__all__ = ["Symbol", "Variable", "var", "Group"]
+__all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json"]
 
 _META = torch.device("meta")
 
@@ -396,6 +407,133 @@ class Symbol:
             aux_states = dict(zip(self.list_auxiliary_states(), aux_states))
         return Executor(self, ctx, args or {}, args_grad, grad_req,
                         aux_states or {})
+
+
+    # -- serialization -----------------------------------------------------
+    #: the reference's tojson schema version (its ``mxtpu_json_schema``)
+    JSON_SCHEMA_VERSION = 2
+
+    def tojson(self):
+        """nnvm-style JSON (the reference's format: nodes, arg_nodes,
+        heads)."""
+        nodes = self._topo_nodes()
+        nid = {id(n): i for i, n in enumerate(nodes)}
+        out_nodes = []
+        for n in nodes:
+            entry = {
+                "op": "null" if n.is_var else n.op.name,
+                "name": n.name,
+                "inputs": [[nid[id(i)], idx, 0] for i, idx in n.inputs],
+            }
+            attrs = {k: str(v) for k, v in n.params.items()}
+            attrs.update({k if k.startswith("__") else "__%s__" % k: v
+                          for k, v in n.attrs.items()})
+            if n.is_aux_var:
+                attrs["__aux__"] = "True"
+            if attrs:
+                entry["attrs"] = attrs
+            out_nodes.append(entry)
+        return json.dumps({
+            "nodes": out_nodes,
+            "arg_nodes": [i for i, n in enumerate(nodes) if n.is_var],
+            "node_row_ptr": list(range(len(nodes) + 1)),
+            "heads": [[nid[id(n)], i, 0] for n, i in self._outputs],
+            "attrs": {"mxnet_version": ["int", 1100],
+                      "mxtpu_json_schema": ["int",
+                                            self.JSON_SCHEMA_VERSION]},
+        }, indent=2)
+
+    def save(self, fname):
+        """Write :meth:`tojson` to ``fname`` atomically."""
+        from ..base import atomic_write
+        atomic_write(fname, self.tojson().encode("utf-8"))
+
+
+def _parse_attr_value(v):
+    """An op attribute's string as the Python value it spells (a number,
+    tuple, bool, None), else the string itself; python-2 long literals
+    (``"(2L, 2L)"``) read as ints, as the reference's JSON upgrade does."""
+    import ast
+    import re
+    try:
+        return ast.literal_eval(v)
+    except (ValueError, SyntaxError):
+        if isinstance(v, str) and "L" in v:
+            try:
+                return ast.literal_eval(re.sub(r"(\d)L\b", r"\1", v))
+            except (ValueError, SyntaxError):
+                pass
+        return v
+
+
+#: attribute keys older JSON stored bare, moved to the hidden ``__key__``
+#: form on load (the reference's ``_upgrade_legacy_attrs``)
+_HIDDEN_KEYS = ("ctx_group", "lr_mult", "wd_mult", "force_mirroring",
+                "mirror_stage")
+
+
+def _upgrade_legacy_attrs(entry, attrs):
+    """Bare hidden keys become ``__key__`` attributes; ``<arg>_<key>`` on
+    an op node is moved onto the matching input variable.  Returns
+    ``(attrs, {arg_name: {key: value}})``."""
+    out, moved = {}, {}
+    for k, v in attrs.items():
+        hit = False
+        for hk in _HIDDEN_KEYS:
+            if k == hk:
+                out["__%s__" % hk] = v
+                hit = True
+            elif k.endswith("_" + hk) and entry.get("op") != "null":
+                moved.setdefault(k[:-len(hk) - 1], {})["__%s__" % hk] = v
+                hit = True
+            if hit:
+                break
+        if not hit:
+            out[k] = v
+    return out, moved
+
+
+def load_json(json_str):
+    """A Symbol from its JSON (the reference's ``mx.sym.load_json``, with
+    its upgrade of older documents: attributes under ``attrs``, ``attr``
+    or ``param``, bare hidden keys, python-2 long literals)."""
+    data = json.loads(json_str)
+    nodes = []
+    for entry in data["nodes"]:
+        attrs = entry.get("attrs", entry.get("attr",
+                                             entry.get("param", {}))) or {}
+        attrs, moved = _upgrade_legacy_attrs(entry, attrs)
+        # hidden keys stay hidden: the reference strips them to
+        # ``lr_mult``, and a loaded symbol then loses its variables'
+        # multipliers and initializers (fault C5)
+        user_attrs = {k: v for k, v in attrs.items()
+                      if k.startswith("__") and k.endswith("__")
+                      and k != "__aux__"}
+        params = {k: _parse_attr_value(v) for k, v in attrs.items()
+                  if not (k.startswith("__") and k.endswith("__"))}
+        if entry["op"] == "null":
+            node = _SymNode(None, entry["name"], {}, [], attrs=user_attrs,
+                            is_var=True,
+                            is_aux_var=attrs.get("__aux__") == "True")
+        else:
+            inputs = [(nodes[i], idx) for i, idx, *_ in entry["inputs"]]
+            node = _SymNode(get_op(entry["op"]), entry["name"], params,
+                            inputs, attrs=user_attrs)
+            for arg_name, kv in moved.items():
+                for inp, _ in inputs:
+                    if inp.is_var and (inp.name == arg_name or
+                                       inp.name.endswith("_" + arg_name)):
+                        inp.attrs.update(kv)
+                        break
+        nodes.append(node)
+    heads = data.get("heads", [[len(nodes) - 1, 0, 0]])
+    outs = [(nodes[h[0]], h[1]) for h in heads]
+    return Symbol(outs[0][0], outs)
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
 
 
 def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,

@@ -157,3 +157,156 @@ def test_per_parameter_initializers_and_deferred_shapes():
         tnn.LayerNorm()
     with pytest.raises(ValueError, match="not both"):
         layer.initialize(device="cpu", ctx=tmx.cpu())
+
+
+@pytest.mark.parametrize("optimizer,params", [
+    ("sgd", {"learning_rate": 0.1}),
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.1}),
+])
+def test_trainer_skips_non_finite_gradients_like_reference(optimizer,
+                                                          params):
+    """Fault C4: a NaN input gives NaN gradients; the reference's Trainer
+    leaves the parameters as they were, and so does the port's: every
+    parameter bit for bit (after a finite step), both clocks rewound as
+    the reference's are.  Then a finite step updates again, as the
+    reference's does."""
+    from mxnet_tpu_torch import autograd
+    jnet, tnet, jtr, ttr = _c4_nets(optimizer, params)
+
+    def step(x):
+        with jmx.autograd.record():
+            jl = jnet(jmx.nd.array(x)).sum()
+        jl.backward()
+        jtr.step(1)
+        with autograd.record():
+            tl = tnet(torch.from_numpy(x)).sum()
+        tl.backward()
+        ttr.step(1)
+
+    step(np.array([[1.0, 2.0, 0.5]], np.float32))
+    before = {n: p.detach().clone()
+              for n, p in tnet.collect_params().items()}
+    step(np.array([[1.0, np.nan, 0.0]], np.float32))
+    jw = jnet.weight.data().asnumpy()
+    assert np.isfinite(jw).all()
+    for n, p in tnet.collect_params().items():
+        assert torch.equal(p.detach(), before[n]), n
+    np.testing.assert_allclose(tnet.weight.detach().numpy(), jw,
+                               rtol=TOL, atol=TOL)
+    # the verdicts are read one step late, at the next step or here
+    jtr._resolve_pending_verdict()
+    ttr._resolve_pending_verdict()
+    assert ttr._optimizer._index_update_count == \
+        jtr._optimizer._index_update_count == {0: 1, 1: 1}
+    assert ttr._optimizer.num_update == jtr._optimizer.num_update == 1
+    assert ttr._consec_guard_skips == jtr._consec_guard_skips == 1
+    step(np.array([[0.5, 1.0, 2.0]], np.float32))
+    ttr._resolve_pending_verdict()
+    assert ttr._consec_guard_skips == 0
+    assert not torch.equal(tnet.weight.detach(), before["cfour_weight"])
+    np.testing.assert_allclose(tnet.weight.detach().numpy(),
+                               jnet.weight.data().asnumpy(),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _c4_nets(optimizer, params, prefix="cfour_"):
+    """``Dense(2, in_units=3)`` in both packages with the same weight, and
+    a Trainer for each."""
+    w = _rand((2, 3), 5)
+    jnet = jnn.Dense(2, in_units=3, prefix=prefix)
+    tnet = tnn.Dense(2, in_units=3, prefix=prefix)
+    jnet.initialize(jmx.init.Zero())
+    tnet.initialize("zeros", ctx=tmx.cpu())
+    jnet.weight.set_data(jmx.nd.array(w))
+    with torch.no_grad():
+        tnet.weight.copy_(torch.from_numpy(w))
+    return jnet, tnet, \
+        jmx.gluon.Trainer(jnet.collect_params(), optimizer, dict(params)), \
+        Trainer(tnet.collect_params(), optimizer, dict(params))
+
+
+@pytest.mark.parametrize("optimizer,params", [
+    ("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+    ("adam", {"learning_rate": 0.1}),
+])
+def test_trainer_skip_keeps_optimizer_state(optimizer, params):
+    """A skipped step leaves the momentum or Adam's mean and variance bit
+    for bit as they were."""
+    from mxnet_tpu_torch import autograd
+    _, net, _, tr = _c4_nets(optimizer, params, prefix="cfourstate_")
+
+    def step(x):
+        with autograd.record():
+            l = net(torch.from_numpy(x)).sum()
+        l.backward()
+        tr.step(1)
+
+    step(np.array([[1.0, 2.0, 0.5]], np.float32))
+    state = {k: [t.clone() for t in (v if isinstance(v, tuple) else (v,))]
+             for k, v in tr._fused.state.items()}
+    assert any(bool(t.abs().max() > 0) for v in state.values() for t in v)
+    step(np.array([[1.0, np.nan, 0.0]], np.float32))
+    for k, want in state.items():
+        got = tr._fused.state[k]
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want):
+            assert torch.equal(g, w), k
+
+
+def test_trainer_raises_after_the_skip_limit(monkeypatch):
+    """``MXTPU_MAX_CONSECUTIVE_SKIPS`` consecutive skipped steps: the next
+    ``step`` raises ``MXNetError`` (the verdict is read one step late)."""
+    from mxnet_tpu_torch import autograd
+    monkeypatch.setenv("MXTPU_MAX_CONSECUTIVE_SKIPS", "2")
+    net = tnn.Dense(2, in_units=3, prefix="skiplimit_")
+    net.initialize("ones", ctx=tmx.cpu())
+    tr = Trainer(net.collect_params(), "sgd", {"learning_rate": 0.1})
+    x = torch.tensor([[1.0, float("inf"), 0.0]])
+
+    def step():
+        with autograd.record():
+            l = net(x).sum()
+        l.backward()
+        tr.step(1)
+
+    step()
+    step()
+    with pytest.raises(tmx.MXNetError, match="consecutive"):
+        step()
+
+
+def test_trainer_states_round_trip(tmp_path):
+    """``save_states``/``load_states``: a second Trainer loaded from the
+    file continues the first one's momentum bit for bit; the learning
+    rate reads and sets."""
+    from mxnet_tpu_torch import autograd
+
+    def make(prefix):
+        net = tnn.Dense(2, in_units=3, prefix=prefix)
+        net.initialize("ones", ctx=tmx.cpu())
+        return net, Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+
+    def step(net, tr):
+        with autograd.record():
+            l = (net(torch.tensor([[1.0, 2.0, 3.0]])) ** 2).sum()
+        l.backward()
+        tr.step(1)
+
+    a, ta = make("statesa_")
+    step(a, ta)
+    ta.save_states(str(tmp_path / "t.states"))
+    b, tb = make("statesb_")
+    with torch.no_grad():
+        for p, q in zip(b.collect_params().values(),
+                        a.collect_params().values()):
+            p.copy_(q)
+    tb.load_states(str(tmp_path / "t.states"))
+    step(a, ta)
+    step(b, tb)
+    for p, q in zip(a.collect_params().values(),
+                    b.collect_params().values()):
+        assert torch.equal(p, q)
+    assert tb.learning_rate == 0.1
+    tb.set_learning_rate(0.01)
+    assert tb._optimizer.lr == 0.01
