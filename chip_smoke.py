@@ -127,13 +127,44 @@ check it.
    its synthetic digits with its settings: train
    and validation accuracy above 0.95, and a batch with a NaN pixel
    skipped (parameters, momentum and clocks bit for bit as before).
-12. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
+12. Gluon ``mx.nd`` phase: the training phase's seeded ``gpt2_small``
+   written to a ``.params`` file and read back by ``load_params`` into a
+   fresh ``gluon.model_zoo.gpt.gpt2_small`` (``ctx=mx.gpu(0)``), trained
+   by ``example/language-model/train_gpt.py``'s own loop on the training
+   phase's batch as ``mx.nd.array(xb, dtype="int32")`` and float32 labels
+   (``Trainer(net.collect_params(), "adam", ...)``,
+   ``SoftmaxCrossEntropyLoss``, ``record``, ``loss.backward()``,
+   ``trainer.step(8)``): ``net(x)`` and the loss are NDArrays and
+   ``collect_params()`` a ParameterDict of 148 Parameters; every step
+   launches B1, B2 and B3 12 times each through
+   ``_contrib_flash_attention``, B7 never:
+   - 5 steps eager: the loss falls and the losses are within
+     ``GLUON_LOSS_TOL`` of the training phase's first 5; the first 3
+     again with the plain versions bound in (losses and parameters read
+     through ``Parameter.data()``, and the first step's gradients read
+     through ``Parameter.grad()`` at ``SYM_GRAD_TOL`` of each tensor's
+     max |g|); a profile window;
+   - 5 steps ``hybridize()``d (the traced route) from the same weights:
+     losses within ``GLUON_LOSS_TOL`` of eager's; a profile window;
+   - 3 steps under ``MXTPU_FLASH_BWD=fused``: B7 12 a step, B2/B3 none;
+   - step p50, tokens/s, peak memory, busy share and kernels a step beside
+     the training phase's;
+   - a ``HybridSequential`` of 12 user HybridBlocks ``LayerNorm(x +
+     fc2(gelu(fc1(x))))`` at 768/3072, ``in_units`` deferred, on 8192 x
+     768 rows, hybridized through the symbolic route: 12
+     LayerNorm-residual fusions, 12 B4 launches a forward and none in a
+     backward, output and gradients against the stack eager and against
+     a rerun with B4's plain version, then a Trainer SGD step;
+   - C7 on the card: inside ``with mx.cpu():`` ``nd.zeros`` lives on the
+     host and ``current_context()`` is ``cpu(0)``.
+13. Prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
    {...}}``.  Any failed check raises before that line (exit code 1).
 
 Float32 matmuls run in full fp32 (TF32 off) so the logits checks compare
 like with like.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -141,6 +172,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -258,15 +290,18 @@ def device_ms(fn, reps, warmup=3):
     """Device time of ``fn`` a call: the time of the CUDA kernels it
     launches, summed by ``torch.profiler`` over ``reps`` calls, without
     the host's launch overhead (which sets the wall time of a call whose
-    kernels take tens of microseconds)."""
+    kernels take tens of microseconds).  When every window comes back
+    without device events, the CUDA-event time of a call (:func:`time_ms`,
+    an upper bound of the device time) is returned instead, and said."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    # a window now and then comes back without its device events; profile
-    # it again rather than report 0
-    for _ in range(3):
+    # a window now and then comes back without its device events (three
+    # in a row once, for SDPA's bf16 backward on packed rows); profile it
+    # again rather than report 0
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -275,8 +310,11 @@ def device_ms(fn, reps, warmup=3):
         us = sum(e.self_device_time_total for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA)
         if us > 0:
-            break
-    return us / reps / 1e3
+            return us / reps / 1e3
+    ms = time_ms(fn, reps=reps, warmup=0)
+    print("device time: 5 profile windows came back without device "
+          "events; the CUDA-event time %.4f ms a call stands in" % ms)
+    return ms
 
 
 # -- kernel phase ---------------------------------------------------------------
@@ -1096,31 +1134,43 @@ def train_step(net, trainer, loss_fn, batch, autocast=False):
 
 
 def reset_params(net, init):
-    with torch.no_grad():
-        for p, v in zip(net.collect_params().values(), init):
-            p.copy_(v)
+    """Write ``init`` into the net's parameters in place (the tensors the
+    Trainer updates stay the same)."""
+    for p, v in zip(net.collect_params().values(), init):
+        p.set_data(v)
+
+
+def param_copies(net):
+    """Copies of the net's parameter tensors, in ``collect_params`` order."""
+    return [p.data().data.detach().clone()
+            for p in net.collect_params().values()]
 
 
 def train_run(net, init, batch, steps, label, card, want, autocast=False,
-              keep_after=None):
-    """``steps`` steps from the weights ``init`` with a fresh Adam Trainer,
-    the flash launch counts set to 0 before each step and read after it;
-    every step must launch ``want`` (B1, B2, B3, B7).  Returns the run's
-    stats (losses, launches, tokens/s, step p50, peak memory) and, with
-    ``keep_after``, copies of the parameters after that many steps."""
+              keep_after=None, step_fn=train_step, keep_grads=False):
+    """``steps`` steps (``step_fn``, by default :func:`train_step`) from
+    the weights ``init`` with a fresh Adam Trainer, the flash launch counts
+    set to 0 before each step and read after it; every step must launch
+    ``want`` (B1, B2, B3, B7).  Returns the run's stats (losses, launches,
+    tokens/s, step p50, peak memory; with ``keep_grads``, ``"grads"``:
+    copies of the first step's gradients by name, which the Trainer leaves
+    in ``p.grad()``) and, with ``keep_after``, copies of the parameters
+    after that many steps."""
     from mxnet_tpu_torch.gluon import Trainer
     from mxnet_tpu_torch.gluon import loss as gloss
     reset_params(net, init)
     trainer = Trainer(net.collect_params(), "adam",
                       {"learning_rate": TRAIN_LR})
     loss_fn = gloss.SoftmaxCrossEntropyLoss(axis=-1, sparse_label=True)
+    # the peak is this run's: earlier phases' garbage is collected first
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_s, totals, kept = [], [], [0, 0, 0, 0], None
+    losses, step_s, totals, kept, grads = [], [], [0, 0, 0, 0], None, None
     for step in range(steps):
         flash_counts(reset=True)
         t = time.perf_counter()
-        losses.append(train_step(net, trainer, loss_fn, batch, autocast))
+        losses.append(step_fn(net, trainer, loss_fn, batch, autocast))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         got = flash_counts()
@@ -1130,15 +1180,19 @@ def train_run(net, init, batch, steps, label, card, want, autocast=False,
         check(math.isfinite(losses[-1]), "%s: loss not finite at step %d"
               % (label, step))
         if keep_after == step + 1:
-            kept = [p.detach().clone()
-                    for p in net.collect_params().values()]
+            kept = param_copies(net)
+        if keep_grads and step == 0:
+            grads = {n: p.grad().data.detach().clone()
+                     for n, p in net.collect_params().items()}
     peak = torch.cuda.max_memory_allocated()
     steady = step_s[1:] or step_s
-    n_tok = batch[0].numel()
+    n_tok = int(np.prod(batch[0].shape))
     stats = {"losses": losses, "launches": dict(zip(FLASH_KERNELS, totals)),
              "tokens_per_s": n_tok * len(steady) / sum(steady),
              "step_p50_ms": statistics.median(steady) * 1e3,
              "first_step_ms": step_s[0] * 1e3, "peak_mib": peak / 2 ** 20}
+    if keep_grads:
+        stats["grads"] = grads
     print("%s [%s]: losses %s; %.1f tokens/s, step p50 %.1f ms (first "
           "step %.1f ms), peak device memory %.1f MiB; flash launches %s"
           % (label, card, " ".join("%.4f" % v for v in losses),
@@ -1174,7 +1228,8 @@ def compare_to_plain(net, init, batch, kernel_stats, kept, label, card,
             "plain": plain}
 
 
-def train_profile(net, init, batch, card, label, steps=3, autocast=False):
+def train_profile(net, init, batch, card, label, steps=3, autocast=False,
+                  step_fn=train_step):
     """``torch.profiler`` over ``steps`` steady training steps (after one
     unprofiled step; not part of any checked run)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1184,23 +1239,29 @@ def train_profile(net, init, batch, card, label, steps=3, autocast=False):
     trainer = Trainer(net.collect_params(), "adam",
                       {"learning_rate": TRAIN_LR})
     loss_fn = gloss.SoftmaxCrossEntropyLoss(axis=-1, sparse_label=True)
-    train_step(net, trainer, loss_fn, batch, autocast)
+    step_fn(net, trainer, loss_fn, batch, autocast)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            train_step(net, trainer, loss_fn, batch, autocast)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
+    # a window that comes back without device events (device_ms) is
+    # profiled again; after 3 such, the shares read "nan"
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(steps):
+                step_fn(net, trainer, loss_fn, batch, autocast)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        out = profile_summary(prof, wall_us, steps, "profile train %s [%s]: "
+                              "step" % (label, card))
+        if out["device_busy_ms_per_step"] > 0:
+            break
     from torch.autograd import DeviceType
-    out = profile_summary(prof, wall_us, steps, "profile train %s [%s]: step"
-                          % (label, card))
     flash_us = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and "flash_" in e.key)
     out["flash_ms_per_step"] = flash_us / steps / 1e3
-    out["flash_share_of_busy"] = (out["flash_ms_per_step"]
-                                  / out["device_busy_ms_per_step"])
+    out["flash_share_of_busy"] = (
+        out["flash_ms_per_step"] / out["device_busy_ms_per_step"]
+        if out["device_busy_ms_per_step"] > 0 else float("nan"))
     print("  flash kernels %.3f ms a step, %.1f%% of the device's busy time"
           % (out["flash_ms_per_step"], 100 * out["flash_share_of_busy"]))
     return out
@@ -1214,7 +1275,7 @@ def train_phase(dev, card):
     backward."""
     t0 = time.perf_counter()
     net = seeded_gpt2_small(seed=0, dev=dev)
-    init = [p.detach().clone() for p in net.collect_params().values()]
+    init = param_copies(net)
     n_layers = len(net.blocks)
     print("train: gpt2_small %d x %d, %d heads, vocab %d on %s, batch %d x "
           "%d, Adam lr %g, set-up %.1f s"
@@ -2680,6 +2741,313 @@ NEW_KERNELS = TC_KERNELS + F32_KERNELS + ("paged_split_kernel",
                                           "paged_merge_kernel")
 
 
+# -- the Gluon mx.nd phase: train_gpt.py's own loop ----------------------------
+
+#: steps of train_gpt.py's loop on NDArrays: eager and hybridized, then
+#: the fused backward
+GLUON_STEPS, GLUON_FUSED_STEPS = 5, 3
+#: the NDArray-fed loop against the training phase's raw-tensor loop from
+#: the same weights and batch, and hybridized against eager: the same torch
+#: ops and kernels in the same order, except that the embedding's gradient
+#: adds its rows by atomics (index_add_) in no fixed order, so the runs
+#: move apart by rounding only, as a rerun with the plain versions does
+GLUON_LOSS_TOL = TRAIN_LOSS_TOL
+#: the post-LN stack: 12 user blocks LayerNorm(x + fc2(gelu(fc1(x)))) at
+#: gpt2_small's widths on the symbolic phase's 8192 rows
+POSTLN_LAYERS, POSTLN_UNITS, POSTLN_HIDDEN, POSTLN_ROWS = 12, 768, 3072, 8192
+#: its outputs (unit scale after each LayerNorm) fused vs unfused and B4
+#: vs its plain version: the statistics sum in another order
+POSTLN_OUT_TOL = 1e-4
+
+
+def gluon_nd_step(net, trainer, loss_fn, batch, autocast=False):
+    """One step of ``train_gpt.py``'s loop as it stands, on the NDArrays
+    ``batch`` (tokens, labels, unused): ``with autograd.record(): loss =
+    loss_fn(net(x), y).mean()``, ``loss.backward()``,
+    ``trainer.step(x.shape[0])``.  Returns the loss as a host float."""
+    import mxnet_tpu_torch as mx
+    x, y, _ = batch
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y).mean()
+    loss.backward()
+    trainer.step(x.shape[0])
+    check(isinstance(loss, mx.nd.NDArray), "gluon nd: the loss is a %s"
+          % type(loss).__name__)
+    return float(loss.asnumpy())
+
+
+def post_ln_block(mx):
+    """A user HybridBlock ``LayerNorm(x + fc2(gelu(fc1(x))))`` whose Dense
+    layers take their input size at the first forward."""
+    class PostLN(mx.gluon.HybridBlock):
+        def __init__(self, units, hidden, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.fc1 = mx.gluon.nn.Dense(hidden, flatten=False)
+                self.fc2 = mx.gluon.nn.Dense(units, flatten=False)
+                self.ln = mx.gluon.nn.LayerNorm()
+
+        def hybrid_forward(self, F, x):
+            h = self.fc2(F.Activation(self.fc1(x), act_type="gelu"))
+            return self.ln(x + h)
+    return PostLN
+
+
+def post_ln_pass(mx, net, x, head, want_b4, label):
+    """One recorded forward and a backward with head gradient ``head``:
+    ``want_b4`` B4 launches in the forward, none in the backward.  Returns
+    the output and the gradients by name."""
+    from mxnet_tpu_torch import autograd
+    ln_count(reset=True)
+    with autograd.record():
+        out = net(x)
+    torch.cuda.synchronize()
+    fwd = ln_count()
+    check(fwd == want_b4, "%s: %d B4 launches in a forward, want %d"
+          % (label, fwd, want_b4))
+    ln_count(reset=True)
+    out.backward(head)
+    torch.cuda.synchronize()
+    check(ln_count() == 0, "%s: B4 launched in the backward" % label)
+    check(isinstance(out, mx.nd.NDArray) and
+          tuple(out.shape) == (POSTLN_ROWS, POSTLN_UNITS) and
+          bool(torch.isfinite(out.data).all()),
+          "%s: output %r" % (label, out))
+    return out.data.detach().clone(), {
+        n: p.grad().data.clone() for n, p in net.collect_params().items()}
+
+
+def post_ln_phase(mx, dev, card):
+    """The post-LN stack hybridized through the symbolic route: 12
+    LayerNorm-residual fusions in the pass report, 12 B4 launches in each
+    forward and none in a backward; output and gradients against the same
+    stack eager (no fusion) and against a rerun with B4's plain version;
+    then one Trainer SGD step.  Returns the phase's numbers."""
+    from mxnet_tpu_torch import gluon
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx.random.seed(5)
+    cls = post_ln_block(mx)
+    net = gluon.nn.HybridSequential(prefix="postln_")
+    with net.name_scope():
+        for _ in range(POSTLN_LAYERS):
+            net.add(cls(POSTLN_UNITS, POSTLN_HIDDEN))
+    net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    rng = np.random.default_rng(6)
+    x = mx.nd.array(rng.standard_normal((POSTLN_ROWS, POSTLN_UNITS),
+                                        np.float32))
+    head = mx.nd.array(rng.standard_normal((POSTLN_ROWS, POSTLN_UNITS),
+                                           np.float32))
+    # eager: the first forward resolves the deferred in_units; no fusion
+    eager = post_ln_pass(mx, net, x, head, 0, "post-LN eager")
+    net.hybridize()
+    t = time.perf_counter()
+    hybrid = post_ln_pass(mx, net, x, head, POSTLN_LAYERS,
+                          "post-LN hybridized")
+    first_s = time.perf_counter() - t
+    launches = POSTLN_LAYERS
+    report = net._cached_graph_report
+    check(net._cached_op.plan is not None and report is not None,
+          "post-LN: the stack did not take the symbolic route")
+    fusions = report["rewrites"].get("layer_norm_residual", 0)
+    check(fusions == POSTLN_LAYERS, "post-LN: %d LayerNorm-residual "
+          "fusions, want %d" % (fusions, POSTLN_LAYERS))
+    with plain_ln():
+        plain = post_ln_pass(mx, net, x, head, 0, "post-LN plain B4")
+    errs = {}
+    for name, other in (("eager", eager), ("plain", plain)):
+        out_err = (hybrid[0] - other[0]).abs().max().item()
+        grad_err = grad_rel_err(hybrid[1], other[1])
+        errs[name] = {"out": out_err, "grad": grad_err}
+        check(out_err <= POSTLN_OUT_TOL, "post-LN: output differs from the "
+              "%s run by %.3g" % (name, out_err))
+        check(grad_err <= SYM_GRAD_TOL, "post-LN: gradients differ from "
+              "the %s run by %.3g" % (name, grad_err))
+    fwd_ms, out = [], None
+    for _ in range(3):
+        out = None                   # one recorded graph alive at a time
+        ln_count(reset=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with mx.autograd.record():
+            out = net(x)
+        torch.cuda.synchronize()
+        fwd_ms.append((time.perf_counter() - t) * 1e3)
+        check(ln_count() == POSTLN_LAYERS, "post-LN: %d B4 launches in a "
+              "timed forward" % ln_count())
+        launches += POSTLN_LAYERS
+    out.backward(head)
+    before = param_copies(net)
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.01})
+    trainer.step(1)
+    moved = sum(bool((a != b).any())
+                for a, b in zip(param_copies(net), before))
+    check(moved == len(before) and all(bool(torch.isfinite(a).all())
+                                       for a in param_copies(net)),
+          "post-LN: the SGD step moved %d of %d parameters" %
+          (moved, len(before)))
+    print("gluon nd post-LN [%s]: %d x HybridBlock LayerNorm(x + fc2(gelu("
+          "fc1(x)))) at %d/%d on %d rows, hybridized: %d LayerNorm-residual "
+          "fusions (report %s), %d B4 launches a forward and 0 in a "
+          "backward; vs eager: output %.3g, gradients %.3g; vs plain B4: "
+          "output %.3g, gradients %.3g (tol %g, %g); first hybridized pass "
+          "%.1f ms, recorded forward p50 %.2f ms (device memory allocated "
+          "%.0f MiB, reserved %.0f MiB); the SGD step moved all %d "
+          "parameters" % (card, POSTLN_LAYERS, POSTLN_UNITS, POSTLN_HIDDEN,
+                          POSTLN_ROWS, fusions, report["rewrites"],
+                          POSTLN_LAYERS, errs["eager"]["out"],
+                          errs["eager"]["grad"], errs["plain"]["out"],
+                          errs["plain"]["grad"], POSTLN_OUT_TOL,
+                          SYM_GRAD_TOL, first_s * 1e3,
+                          statistics.median(fwd_ms),
+                          torch.cuda.memory_allocated() / 2 ** 20,
+                          torch.cuda.memory_reserved() / 2 ** 20, moved))
+    return {"fusions": fusions, "report": report["rewrites"], "errs": errs,
+            "fwd_p50_ms": statistics.median(fwd_ms), "launches": launches}
+
+
+def gluon_nd_phase(dev, card, train):
+    """gpt2_small trained by train_gpt.py's own Gluon loop on NDArrays:
+    eager, its plain-version rerun, hybridized, the fused backward, two
+    profile windows; the post-LN stack on the symbolic route; C7 on the
+    card.  ``train``: the training phase's numbers, set beside these."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=REPO, prefix=".chip_smoke_")
+    try:
+        path = os.path.join(tmp, "gpt2_small_seed0.params")
+        seeded_gpt2_small(seed=0, dev=dev).save_params(path)
+        net = gpt.gpt2_small()
+        net.load_params(path, ctx=mx.gpu(0))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    params = net.collect_params()
+    # wte, wpe, lnf gamma and beta, and 12 a block: 148 for gpt2_small
+    check(isinstance(params, mx.gluon.ParameterDict) and
+          len(params) == 4 + 12 * len(net.blocks) and all(isinstance(p, mx.gluon.Parameter)
+                  for p in params.values()),
+          "gluon nd: collect_params() is a %s of %d" %
+          (type(params).__name__, len(params)))
+    init = param_copies(net)
+    xt, yt, _ = train_batch(dev, seed=3, packed=False)
+    xb, yb = xt.cpu().numpy(), yt.cpu().numpy()
+    x = mx.nd.array(xb, dtype="int32")
+    y = mx.nd.array(yb.astype(np.float32))
+    batch = (x, y, None)
+    with torch.no_grad():
+        out = net(x)
+    check(isinstance(out, mx.nd.NDArray) and tuple(out.shape) ==
+          (TRAIN_B, TRAIN_T, net._vocab), "gluon nd: net(x) gave %r" % out)
+    del out
+    n_layers = len(net.blocks)
+    split_want = (n_layers, n_layers, n_layers, 0)
+    fused_want = (n_layers, 0, 0, n_layers)
+    print("gluon nd: gpt2_small %d x %d loaded by load_params from a "
+          ".params file (%d Parameters), batch %d x %d on %s, set-up %.1f s"
+          % (n_layers, net._units, len(params), TRAIN_B, TRAIN_T,
+             x.context, time.perf_counter() - t0))
+    out = {}
+    with flash_bwd_env("split"):
+        eager, kept = train_run(net, init, batch, GLUON_STEPS,
+                                "gluon nd eager", card, split_want,
+                                keep_after=PLAIN_STEPS, step_fn=gluon_nd_step,
+                                keep_grads=True)
+        check(eager["losses"][-1] < eager["losses"][0],
+              "gluon nd eager: the loss did not fall: %r" % eager["losses"])
+        ref = train["split"]["losses"][:GLUON_STEPS]
+        eager["losses_vs_train"] = max(abs(a - b) for a, b in
+                                       zip(eager["losses"], ref))
+        check(eager["losses_vs_train"] <= GLUON_LOSS_TOL,
+              "gluon nd eager: losses differ from the training phase's by "
+              "%.3g" % eager["losses_vs_train"])
+        with plain_flash():
+            plain, plain_kept = train_run(
+                net, init, batch, PLAIN_STEPS, "gluon nd eager (plain "
+                "versions)", card, (0, 0, 0, 0), keep_after=PLAIN_STEPS,
+                step_fn=gluon_nd_step, keep_grads=True)
+        # Adam's first updates are about lr * sign(g) whatever the
+        # gradient's size: the gradients themselves are held too
+        eager["grads_vs_plain"] = grad_rel_err(eager.pop("grads"),
+                                               plain.pop("grads"))
+        eager["loss_vs_plain"] = max(abs(a - b) for a, b in
+                                     zip(eager["losses"], plain["losses"]))
+        eager["params_vs_plain"] = max((a - b).abs().max().item()
+                                       for a, b in zip(kept, plain_kept))
+        del kept, plain_kept
+        check(eager["loss_vs_plain"] <= TRAIN_LOSS_TOL and
+              eager["params_vs_plain"] <= TRAIN_PARAM_TOL and
+              eager["grads_vs_plain"] <= SYM_GRAD_TOL,
+              "gluon nd eager vs plain versions: losses %.3g, parameters "
+              "%.3g, first step's gradients %.3g of max |g|"
+              % (eager["loss_vs_plain"], eager["params_vs_plain"],
+                 eager["grads_vs_plain"]))
+        eager["profile"] = train_profile(net, init, batch, card,
+                                         "gluon nd eager",
+                                         step_fn=gluon_nd_step)
+        net.hybridize()
+        hybrid, _ = train_run(net, init, batch, GLUON_STEPS,
+                              "gluon nd hybridized", card, split_want,
+                              step_fn=gluon_nd_step)
+        check(net._cached_op is not None and net._cached_op.plan is None,
+              "gluon nd: the hybridized stack did not take the traced "
+              "route")
+        hybrid["losses_vs_eager"] = max(abs(a - b) for a, b in
+                                        zip(hybrid["losses"],
+                                            eager["losses"]))
+        check(hybrid["losses_vs_eager"] <= GLUON_LOSS_TOL,
+              "gluon nd hybridized: losses differ from eager by %.3g"
+              % hybrid["losses_vs_eager"])
+        hybrid["profile"] = train_profile(net, init, batch, card,
+                                          "gluon nd hybridized",
+                                          step_fn=gluon_nd_step)
+        net.hybridize(False)
+    with flash_bwd_env("fused"):
+        fused, _ = train_run(net, init, batch, GLUON_FUSED_STEPS,
+                             "gluon nd fused", card, fused_want,
+                             step_fn=gluon_nd_step)
+    fused["losses_vs_split"] = max(abs(a - b) for a, b in
+                                   zip(fused["losses"], eager["losses"]))
+    check(fused["losses_vs_split"] <= FUSED_LOSS_TOL,
+          "gluon nd fused: losses differ from the split run by %.3g"
+          % fused["losses_vs_split"])
+    print("gluon nd: eager vs the training phase's losses %.3g, vs plain "
+          "versions: losses %.3g, parameters %.3g, first step's gradients "
+          "%.3g of max |g| (tol %g, %g, %g); hybridized vs eager %.3g; "
+          "fused vs split %.3g (tol %g)"
+          % (eager["losses_vs_train"], eager["loss_vs_plain"],
+             eager["params_vs_plain"], eager["grads_vs_plain"],
+             TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, SYM_GRAD_TOL,
+             hybrid["losses_vs_eager"], fused["losses_vs_split"],
+             FUSED_LOSS_TOL))
+    t7 = train["split"]
+    for label, run in (("eager", eager), ("hybridized", hybrid)):
+        print("gluon nd %s vs the training phase (raw tensors) [%s]: step "
+              "p50 %.2f vs %.2f ms, %.1f vs %.1f tokens/s, peak %.1f vs %.1f "
+              "MiB, device busy %.1f%% vs %.1f%%, %.0f vs %.0f kernels a step"
+              % (label, card, run["step_p50_ms"], t7["step_p50_ms"],
+                 run["tokens_per_s"], t7["tokens_per_s"], run["peak_mib"],
+                 t7["peak_mib"], 100 * run["profile"]["device_busy_share"],
+                 100 * t7["profile"]["device_busy_share"],
+                 run["profile"]["kernels_per_step"],
+                 t7["profile"]["kernels_per_step"]))
+    out.update(eager=eager, hybrid=hybrid, fused=fused,
+               plain=plain["losses"])
+    del net, init
+    torch.cuda.empty_cache()
+    out["post_ln"] = post_ln_phase(mx, dev, card)
+    with mx.cpu():
+        z = mx.nd.zeros((2,))
+        where = str(mx.current_context())
+    check(z.data.device.type == "cpu" and where == "cpu(0)",
+          "C7: inside `with mx.cpu():` nd.zeros lives on %s and the "
+          "context is %s" % (z.data.device, where))
+    print("gluon nd: C7 on the card: inside `with mx.cpu():` nd.zeros is "
+          "on %s, current_context() %s" % (z.data.device, where))
+    return out
+
+
 def build_evidence(build):
     """The redesigned kernels' registers and spills (``-Xptxas -v``), the
     tensor-core instructions of B1's, B2's, B3's and B7's bf16 kernels in
@@ -2778,6 +3146,8 @@ def main():
     imperative = imperative_phase(dev, card)
     torch.cuda.empty_cache()
     module = module_phase(dev, card)
+    torch.cuda.empty_cache()
+    gluon_nd = gluon_nd_phase(dev, card, train)
 
     b5 = "mxnet_tpu/ops/pallas/paged_attention.py:73"
     b6 = "mxnet_tpu/ops/pallas/paged_attention.py:231"
@@ -2791,6 +3161,10 @@ def main():
     flash_launches["flash_bwd_fused"] = sum(
         train[run]["launches"]["flash_bwd_fused"]
         for run in ("fused", "bf16_fused"))
+    # and the Gluon mx.nd phase's: eager and hybridized (split), fused
+    for run in ("eager", "hybrid", "fused"):
+        for name, n in gluon_nd[run]["launches"].items():
+            flash_launches[name] += n
     kernels = [
         kernel_entry("paged_attention", b5, cases["paged_attention"],
                      served["launches"], cases["paged_attention"][0]),
@@ -2813,11 +3187,13 @@ def main():
         kernels.append(kernel_entry(name, fa_ref % line, flash[name],
                                     flash_launches[name], flash[name][0],
                                     source=fa_src))
-    check(symbolic["launches"] > 0 and module["launches"] > 0,
+    check(symbolic["launches"] > 0 and module["launches"] > 0 and
+          gluon_nd["post_ln"]["launches"] > 0,
           "layer_norm_residual never launched on its path")
     kernels.append(kernel_entry(
         "layer_norm_residual", "mxnet_tpu/ops/pallas/layer_norm.py:56",
-        ln_cases, symbolic["launches"] + module["launches"], ln_cases[0],
+        ln_cases, symbolic["launches"] + module["launches"] +
+        gluon_nd["post_ln"]["launches"], ln_cases[0],
         source="mxnet_tpu_torch/csrc/layer_norm.cu"))
     # B8: the user's sgd_update, launched by the imperative path; its
     # cases are both user kernels'.  library_ms is torch's fused SGD call;
@@ -2832,7 +3208,8 @@ def main():
     kernels.append(entry)
     print(json.dumps({"slice": served, "spec": spec, "int8": int8,
                       "train": train, "symbolic": symbolic,
-                      "imperative": imperative, "module": module}))
+                      "imperative": imperative, "module": module,
+                      "gluon_nd": gluon_nd}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,11 +15,12 @@ stay:
   it on by default, :func:`pause` off;
 - *leaves*: :func:`mark_variables` (``NDArray.attach_grad``) makes an
   array's tensor a leaf that requires grad, with a zero gradient buffer
-  and a ``grad_req``; :func:`backward` writes (``write``) or adds
-  (``add``) each reached leaf's gradient into that buffer and leaves
-  torch's own ``.grad`` untouched (``torch.autograd.grad``), so nothing
-  accumulates behind MXNet's back; :func:`grad` returns the gradients
-  and touches no buffer;
+  and a ``grad_req``; the buffer is also the leaf's ``.grad``, so a
+  torch ``backward()`` of raw tensors computed from the leaf adds into
+  the same buffer.  :func:`backward` writes (``write``) or adds
+  (``add``) each reached leaf's gradient into that buffer in place
+  (``torch.autograd.grad``, so nothing else accumulates behind MXNet's
+  back); :func:`grad` returns the gradients and touches no buffer;
 - *head gradients* default to ones (``SoftmaxOutput`` ignores them, as
   its backward does); a head that was not recorded reaches nothing, and
   ``backward`` changes no gradient, as the reference's;
@@ -27,9 +28,11 @@ stay:
   through it raises (the reference keeps its tape nodes reachable from
   the heads and runs it again).
 
-A Gluon loss is a torch tensor: its ``backward()`` is torch's, gradients
-land in each parameter's ``.grad``, and :class:`~.gluon.Trainer` consumes
-and clears them (MXNet's ``grad_req="write"``).
+A Gluon block fed NDArrays returns NDArrays, and its loss's
+``backward()`` is :func:`backward`; fed raw tensors it returns tensors,
+whose ``backward()`` is torch's.  Either way a parameter's gradient lands
+in its one buffer (:mod:`.gluon.parameter`), where the
+:class:`~.gluon.Trainer` reads it.
 """
 from __future__ import annotations
 
@@ -204,14 +207,27 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     variables = [v for v in list(_state().variables.values())
                  if v._grad_req in ("write", "add")]
     grads = _gradients(heads, variables, head_grads, bool(retain_graph))
+    # one multi-tensor copy (write) and one add (add) over the buffers
+    writes, adds = ([], []), ([], [])
     with torch.no_grad():
         for v, g in zip(variables, grads):
             if g is None:
                 continue
-            if v._grad_req == "add":
-                v._grad._data.add_(g)
-            else:
-                v._grad._assign(g)
+            buf = v._grad._data
+            if (buf.shape, buf.dtype, buf.device) != \
+                    (g.shape, g.dtype, g.device):
+                if v._grad_req == "add":
+                    buf.add_(g)
+                else:
+                    v._grad._assign(g)
+                continue
+            pair = adds if v._grad_req == "add" else writes
+            pair[0].append(buf)
+            pair[1].append(g)
+        if writes[0]:
+            torch._foreach_copy_(*writes)
+        if adds[0]:
+            torch._foreach_add_(*adds)
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

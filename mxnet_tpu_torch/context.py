@@ -1,19 +1,21 @@
 """Device naming for the PyTorch package (counterpart of
 ``mxnet_tpu/context.py``).
 
-``cpu()`` and ``gpu(i)`` are plain ``torch.device`` values.  The default
-device is the first CUDA card; with no card there is no default, so an
-entry point that was not told where to run raises instead of quietly
-running on the host.  Callers that want the CPU (the parity tests) pass
-``device="cpu"`` explicitly, or open a scope::
-
-    with mx.Context("cpu"):
-        mod = mx.mod.Module(sym)        # binds on the host
-
 A :class:`Context` names a device the reference's way (``"cpu"`` or
-``"gpu"`` and an index) and, as a ``with`` block, makes it the default of
-every entry point called inside (:func:`current_context`,
-:func:`resolve_device`).
+``"gpu"`` and an index); ``cpu(i)`` and ``gpu(i)`` return one, and as a
+``with`` block it makes its device the default of every entry point
+called inside (:func:`current_context`, :func:`resolve_device`).  Every
+entry point that takes a device takes a :class:`Context`, a
+``torch.device`` or a string alike (:func:`as_device`).
+
+The default device is the first CUDA card; with no card there is no
+default, so an entry point that was not told where to run raises instead
+of quietly running on the host.  Callers that want the CPU (the parity
+tests) pass ``device="cpu"`` or ``ctx=mx.cpu()`` explicitly, or open a
+scope::
+
+    with mx.cpu():
+        mod = mx.mod.Module(sym)        # binds on the host
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context", "num_gpus",
-           "default_device", "resolve_device"]
+           "default_device", "resolve_device", "as_device"]
 
 
 class Context:
@@ -75,11 +77,11 @@ class Context:
 
 
 def cpu(device_id=0):
-    return torch.device("cpu")
+    return Context("cpu", device_id)
 
 
 def gpu(device_id=0):
-    return torch.device("cuda", int(device_id))
+    return Context("gpu", device_id)
 
 
 def num_gpus():
@@ -102,7 +104,15 @@ def default_device():
         raise MXNetError(
             "no CUDA device is visible: pass device='cpu' to run on the "
             "host explicitly")
-    return gpu(0)
+    return torch.device("cuda", 0)
+
+
+def as_device(device):
+    """A :class:`Context`, ``torch.device`` or string as a
+    ``torch.device`` (no default, no check that the card exists)."""
+    if isinstance(device, Context):
+        return device.device
+    return torch.device(device)
 
 
 def resolve_device(device=None):
@@ -111,9 +121,7 @@ def resolve_device(device=None):
     through ``torch.device`` (``"cpu"``, ``"cuda:1"``, a ``torch.device``)."""
     if device is None:
         device = current_context()
-    if isinstance(device, Context):
-        device = device.device
-    dev = torch.device(device)
+    dev = as_device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise MXNetError("device %s requested but no CUDA device is "
                          "visible" % dev)

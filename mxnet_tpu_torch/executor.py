@@ -13,8 +13,10 @@ programs become here:
   gradients (ones by default) and writes or adds into ``grad_dict`` per
   ``grad_req``; without a preceding training forward it reruns the
   forward first, as the reference's fused program does;
-- aux states are bound and read by name; no ported op updates one yet
-  (the write-back comes with BatchNorm);
+- aux states are bound and read by name; the new values an op returns
+  for them (BatchNorm's moving statistics while training) are written
+  back into ``aux_dict`` after the forward, as the reference's
+  ``mutate_aux`` contract does;
 - :meth:`make_fit_step` is the fused train step of ``Module.fit``: one
   eager pass of the training forward, ``torch.autograd.grad`` on the
   updated parameters and the guarded multi-tensor optimizer update, in
@@ -38,7 +40,7 @@ import torch
 from .base import MXNetError
 from .ndarray.ndarray import NDArray, zeros
 
-__all__ = ["Executor"]
+__all__ = ["Executor", "build_plan"]
 
 
 class Executor:
@@ -89,46 +91,7 @@ class Executor:
                     "failed (%s: %s); running the unrewritten graph",
                     type(e).__name__, e)
                 self._opt_symbol = symbol
-        self._plan = self._build_plan(self._opt_symbol)
-
-    # -- the plan ----------------------------------------------------------
-    def _build_plan(self, symbol):
-        """``plan(arg_vals, aux_vals, train) -> outs``: the graph evaluated
-        node by node on the bind device.  A node's outputs are dropped
-        after their last consumer runs, so an inference forward holds only
-        the live activations (XLA frees the reference's buffers alike);
-        a training forward keeps what autograd saved."""
-        from .graph.graph import apply_node
-        nodes = symbol._topo_nodes()
-        heads = list(symbol._outputs)
-        device = self._ctx
-        last_use = {}
-        for i, node in enumerate(nodes):
-            for inp, _ in node.inputs:
-                last_use[id(inp)] = i
-        keep = {id(n) for n, _ in heads}
-        drop_after = [[] for _ in nodes]
-        for node in nodes:
-            if id(node) in last_use and id(node) not in keep:
-                drop_after[last_use[id(node)]].append(id(node))
-
-        def plan(arg_vals, aux_vals, train, tap=None):
-            vals = {}
-            for i, node in enumerate(nodes):
-                if node.is_var:
-                    vals[id(node)] = [aux_vals[node.name] if node.is_aux_var
-                                      else arg_vals[node.name]]
-                    continue
-                inputs = [vals[id(inp)][idx] for inp, idx in node.inputs]
-                vals[id(node)], _ = apply_node(node, inputs, train, device)
-                del inputs
-                if tap is not None:
-                    tap(node, vals[id(node)])
-                for dead in drop_after[i]:
-                    del vals[dead]
-            return [vals[id(n)][i] for n, i in heads]
-
-        return plan
+        self._plan = build_plan(self._opt_symbol, self._ctx)
 
     def _diff_names(self):
         return [n for n in self._arg_names
@@ -136,6 +99,10 @@ class Executor:
 
     def _raw_aux(self):
         return {k: v.data for k, v in self.aux_dict.items()}
+
+    def _write_aux(self, new_aux):
+        for name, value in new_aux.items():
+            self.aux_dict[name]._assign(value.detach())
 
     def _train_forward(self):
         """The training forward with torch's graph kept: ``(outs,
@@ -153,11 +120,14 @@ class Executor:
         user's unrewritten graph node by node with every node's outputs
         handed to the callback (the reference's interpret mode)."""
         if self._monitor_callback is None or not self._monitor_all:
-            return self._plan(args, self._raw_aux(), train)
+            new_aux = {}
+            outs = self._plan(args, self._raw_aux(), train, aux_out=new_aux)
+            self._write_aux(new_aux)
+            return outs
         if self._interp_plan is None:
             self._interp_plan = self._plan \
                 if self._opt_symbol is self._symbol \
-                else self._build_plan(self._symbol)
+                else build_plan(self._symbol, self._ctx)
 
         def tap(node, vis):
             for j, v in enumerate(vis):
@@ -278,8 +248,11 @@ class Executor:
                       for n in update_names}
             args = dict(other_vals)
             args.update(leaves)
+            new_aux = {}
             with torch.enable_grad():
-                outs = self._plan(args, self._raw_aux(), True)
+                outs = self._plan(args, self._raw_aux(), True,
+                                  aux_out=new_aux)
+            self._write_aux(new_aux)
             heads = [o for o in outs if o.requires_grad]
             grads = torch.autograd.grad(
                 heads, [leaves[n] for n in update_names],
@@ -337,3 +310,50 @@ class Executor:
                      if self._grad_req.get(n, "null") != "null"}
         return Executor(self._symbol, self._ctx, new_args, args_grad,
                         self._grad_req, new_aux)
+
+
+def build_plan(symbol, device):
+    """``plan(arg_vals, aux_vals, train, tap=None, aux_out=None) ->
+    outs``: ``symbol``'s graph evaluated node by node on ``device``
+    (:func:`~.graph.graph.apply_node` per node), the evaluator of an
+    :class:`Executor` and of a hybridized Gluon block's graph.  A node's
+    outputs are dropped after their last consumer runs, so an inference
+    forward holds only the live activations (XLA frees the reference's
+    buffers alike); a training forward keeps what autograd saved.  The new
+    value an op returns for an aux input (``mutate_aux``) goes into
+    ``aux_out`` under the aux variable's name."""
+    from .graph.graph import apply_node
+    nodes = symbol._topo_nodes()
+    heads = list(symbol._outputs)
+    last_use = {}
+    for i, node in enumerate(nodes):
+        for inp, _ in node.inputs:
+            last_use[id(inp)] = i
+    keep = {id(n) for n, _ in heads}
+    drop_after = [[] for _ in nodes]
+    for node in nodes:
+        if id(node) in last_use and id(node) not in keep:
+            drop_after[last_use[id(node)]].append(id(node))
+
+    def plan(arg_vals, aux_vals, train, tap=None, aux_out=None):
+        vals = {}
+        for i, node in enumerate(nodes):
+            if node.is_var:
+                vals[id(node)] = [aux_vals[node.name] if node.is_aux_var
+                                  else arg_vals[node.name]]
+                continue
+            inputs = [vals[id(inp)][idx] for inp, idx in node.inputs]
+            vals[id(node)], extra = apply_node(node, inputs, train, device)
+            if extra and aux_out is not None:
+                # trailing inputs are the aux states, one to one
+                for (inp, _), new in zip(node.inputs[-len(extra):], extra):
+                    if inp.is_var and inp.is_aux_var:
+                        aux_out[inp.name] = new
+            del inputs
+            if tap is not None:
+                tap(node, vals[id(node)])
+            for dead in drop_after[i]:
+                del vals[dead]
+        return [vals[id(n)][i] for n, i in heads]
+
+    return plan

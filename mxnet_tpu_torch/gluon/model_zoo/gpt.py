@@ -2,16 +2,24 @@
 forward and the serving programs of ``mxnet_tpu/gluon/model_zoo/gpt.py``,
 in PyTorch.
 
-Model half: :class:`GPTBlock` and :class:`GPTLM` hold the Gluon
-parameters under Gluon's names (pre-LN blocks, head-major fused qkv,
-gelu-tanh MLP at 4x width, tied embedding head, vocab padded to a
-multiple of 128).  Weights arrive through :meth:`~..nn.Block.initialize`,
-:func:`load_jax_params` or :meth:`GPTLM.load_params` (the V2 ``.params``
-format) and leave through :meth:`~..nn.Block.save_params`.
-:meth:`GPTLM.forward` is the training forward: every block's attention
-runs the flash kernels (B1 forward, B2 + B3 or B7 backward), with
-sequence packing through :func:`pack_sequences` / :func:`packed_positions`,
-dropout and per-block rematerialisation.
+Model half: :class:`GPTBlock` and :class:`GPTLM` are Gluon
+:class:`~..block.HybridBlock` blocks with the reference's ``hybrid_forward``
+(pre-LN blocks, head-major fused qkv, gelu-tanh MLP at 4x width, tied
+embedding head, vocab padded to a multiple of 128) and its parameter
+names (``gptlm0_h_gptblock0_attn_qkv_weight``, ...).  Fed NDArrays they
+run eager or, after ``hybridize()``, as the traced CachedOp (the stack
+reads ``tokens.shape``, so it does not trace symbolically); fed raw torch
+tensors they run the same ``hybrid_forward`` over tensors, the reference's
+raw-array dispatch.  Every block's attention is
+``F._contrib_flash_attention``, the flash kernels (B1 forward, B2 + B3 or
+B7 backward), with sequence packing through :func:`pack_sequences` /
+:func:`packed_positions` and dropout (``F.Dropout``).  ``remat=True``
+recomputes each block's activations in the backward
+(``torch.utils.checkpoint``) on the raw-tensor path, as the reference
+rematerializes on its traced path only.  Weights arrive through
+``initialize``, :func:`load_jax_params` (arrays in memory) or the
+Block's ``load_params`` (a V2 ``.params`` file) and leave through
+``save_params``.
 
 Serving half, greedy only, the same math as the JAX package:
 
@@ -46,11 +54,12 @@ import torch
 import torch.nn.functional as F
 
 from ... import autograd
+from ... import random as _random
 from ...context import resolve_device
-from ..nn import Block, Dense, FlashSelfAttention, LayerNorm, Sequential
-from ..nn.basic_layers import _device_arg
-from ...ndarray.serialization import load_ndarray_file
+from ...ndarray.ndarray import NDArray
 from ...ops.paged_attention import paged_attention, paged_attention_multi
+from .. import nn
+from ..block import HybridBlock, current_trace, trace_scope
 
 __all__ = ["GPTBlock", "GPTLM", "get_gpt", "gpt2_tiny", "gpt2_tiny_moe",
            "gpt2_small", "gpt2_medium", "pack_sequences",
@@ -61,142 +70,156 @@ __all__ = ["GPTBlock", "GPTLM", "get_gpt", "gpt2_tiny", "gpt2_tiny_moe",
 _NEG_INF = -1e30
 
 
-def _dropout(x, p):
-    """Dropout while :func:`autograd.is_training` (inverted scaling, as the
-    reference's ``Dropout`` op); identity otherwise."""
-    if not p or not autograd.is_training():
-        return x
-    return F.dropout(x, p, training=True)
-
-
-class GPTBlock(Block):
+class GPTBlock(HybridBlock):
     """One pre-LN decoder block: ``ln1``, ``attn`` (fused qkv + out),
     ``ln2``, and a gelu-tanh MLP ``fc1``/``fc2``; dropout after the
     attention and after the MLP."""
 
     def __init__(self, units, num_heads, mlp_ratio=4, dropout=0.0,
-                 moe_experts=0, prefix="gptblock0_"):
+                 moe_experts=0, moe_capacity=2.0, **kwargs):
         if moe_experts:
             raise NotImplementedError(
                 "mixture-of-experts blocks belong to the multi-device "
                 "slice of the port")
-        super().__init__(prefix)
-        self._dropout = float(dropout)
+        super().__init__(**kwargs)
+        self._dropout = dropout
         with self.name_scope():
-            self.ln1 = LayerNorm(in_channels=units, prefix="ln1_")
-            self.attn = FlashSelfAttention(units, num_heads, causal=True,
-                                           in_units=units, prefix="attn_")
-            self.ln2 = LayerNorm(in_channels=units, prefix="ln2_")
-            self.fc1 = Dense(mlp_ratio * units, flatten=False,
-                             in_units=units, prefix="fc1_")
-            self.fc2 = Dense(units, flatten=False,
-                             in_units=mlp_ratio * units, prefix="fc2_")
+            self.ln1 = nn.LayerNorm(in_channels=units, prefix="ln1_")
+            self.attn = nn.FlashSelfAttention(units, num_heads,
+                                              causal=True,
+                                              in_units=units,
+                                              prefix="attn_")
+            self.ln2 = nn.LayerNorm(in_channels=units, prefix="ln2_")
+            self.fc1 = nn.Dense(mlp_ratio * units, flatten=False,
+                                in_units=units, prefix="fc1_")
+            self.fc2 = nn.Dense(units, flatten=False,
+                                in_units=mlp_ratio * units, prefix="fc2_")
 
-    def forward(self, x, segments=None):
+    def hybrid_forward(self, F, x, segments=None):
         """``x`` ``[B, T, C]`` -> ``[B, T, C]``; ``segments`` ``[B, T]``
         packing ids for the attention."""
-        x = x + _dropout(self.attn(self.ln1(x), segments), self._dropout)
-        h = self.fc2(F.gelu(self.fc1(self.ln2(x)), approximate="tanh"))
-        return x + _dropout(h, self._dropout)
+        if segments is None:
+            h = self.attn(self.ln1(x))
+        else:
+            h = self.attn(self.ln1(x), segments)
+        if self._dropout:
+            h = F.Dropout(h, p=self._dropout)
+        x = x + h
+        h = self.fc2(F.Activation(self.fc1(self.ln2(x)), act_type="gelu"))
+        if self._dropout:
+            h = F.Dropout(h, p=self._dropout)
+        return x + h
 
 
-def _remat_block(blk, h, segments, training):
-    """One block's forward for ``torch.utils.checkpoint``: the recompute
-    in backward runs outside ``record()``, so the scope is set again here
-    (with the forward's training mode, and checkpoint restores the RNG
-    state, so dropout draws the same mask)."""
-    with autograd.record(train_mode=training):
-        return blk(h, segments)
+def _remat_block(blk, h, segments):
+    """``blk(h, segments)`` under ``torch.utils.checkpoint``: the backward
+    recomputes the block's activations in the same trace (parameters,
+    training mode) and with the same dropout draws (the generator's state
+    of the forward is put back for the recompute)."""
+    from torch.utils.checkpoint import checkpoint
+    ctx = current_trace()
+    gen = _random.generator(h.device)
+    state = []
+
+    def run(x, seg):
+        if not state:
+            state.append(gen.get_state())
+            return blk(x, seg)
+        saved = gen.get_state()
+        gen.set_state(state[0])
+        try:
+            with trace_scope(ctx), autograd.record(train_mode=ctx.train):
+                return blk(x, seg)
+        finally:
+            gen.set_state(saved)
+    return checkpoint(run, h, segments, use_reentrant=False)
 
 
-class GPTLM(Block):
+class GPTLM(HybridBlock):
     """Decoder-only LM: token + learned position embeddings (``wte``,
     ``wpe``), ``num_layers`` blocks under ``h_``, final LayerNorm
     ``lnf_``, output head tied to ``wte``.
 
+    Input: int token ids ``[B, T]`` (``T <= max_len``), optionally
+    ``segments`` (``[B, T]`` packing ids: every document attends within
+    itself and its positions restart at 0); output: logits ``[B, T, V]``.
     ``dropout`` applies after the embeddings and inside every block while
-    training; ``remat=True`` recomputes each block's activations in the
-    backward (``torch.utils.checkpoint``) instead of keeping them."""
-
-    _gluon_names = {"wte": "wte_weight", "wpe": "wpe_weight"}
+    training."""
 
     def __init__(self, vocab_size, num_layers, units, num_heads,
                  max_len=1024, dropout=0.0, remat=False, moe_experts=0,
-                 prefix="gptlm0_"):
-        super().__init__(prefix)
-        self._vocab = int(vocab_size)
-        self._units = int(units)
-        self._max_len = int(max_len)
-        self._dropout = float(dropout)
-        self._remat = bool(remat)
-        self.wte = self._param((vocab_size, units))
-        self.wpe = self._param((max_len, units))
+                 moe_capacity=2.0, **kwargs):
+        super().__init__(**kwargs)
+        self._vocab = vocab_size
+        self._units = units
+        self._max_len = max_len
+        self._dropout = dropout
+        self._remat = remat
         with self.name_scope():
-            self.blocks = Sequential(prefix="h_")
+            self.wte = self.params.get("wte_weight",
+                                       shape=(vocab_size, units))
+            self.wpe = self.params.get("wpe_weight",
+                                       shape=(max_len, units))
+            self.blocks = nn.HybridSequential(prefix="h_")
             with self.blocks.name_scope():
-                for i in range(num_layers):
+                for _ in range(num_layers):
                     self.blocks.add(GPTBlock(units, num_heads,
                                              dropout=dropout,
                                              moe_experts=moe_experts,
-                                             prefix="gptblock%d_" % i))
-            self.ln_f = LayerNorm(in_channels=units, prefix="lnf_")
+                                             moe_capacity=moe_capacity))
+            self.ln_f = nn.LayerNorm(in_channels=units, prefix="lnf_")
 
     @property
     def num_heads(self):
         return self.blocks[0].attn._num_heads
 
-    def forward(self, tokens, segments=None):
-        """``tokens`` int ``[B, T]`` (``T <= max_len``) -> logits
-        ``[B, T, V]``.  With ``segments`` (``[B, T]`` packing ids) every
-        document attends within itself and its positions restart at 0
-        (:func:`packed_positions`)."""
+    def hybrid_forward(self, F, tokens, segments=None, wte=None, wpe=None):
         t = tokens.shape[1]
         if t > self._max_len:
             raise ValueError("sequence length %d exceeds max_len %d"
                              % (t, self._max_len))
-        tokens = tokens.long()
-        h = F.embedding(tokens, self.wte)
+        h = F.Embedding(tokens, wte, input_dim=self._vocab,
+                        output_dim=self._units)
         if segments is None:
-            h = h + self.wpe[:t]
+            h = h + F.slice_axis(wpe, axis=0, begin=0, end=t)
         else:
-            segments = torch.as_tensor(segments, device=tokens.device)
-            h = h + F.embedding(packed_positions(segments).long(), self.wpe)
-        h = _dropout(h, self._dropout)
-        if self._remat and torch.is_grad_enabled():
-            from torch.utils.checkpoint import checkpoint
+            # packed rows: positions restart at each segment boundary, so
+            # every document trains with the wpe rows it sees standalone
+            h = h + F.Embedding(packed_positions(segments), wpe,
+                                input_dim=self._max_len,
+                                output_dim=self._units)
+        if self._dropout:
+            h = F.Dropout(h, p=self._dropout)
+        if self._remat and isinstance(h, torch.Tensor) and \
+                torch.is_grad_enabled():
             for blk in self.blocks:
-                h = checkpoint(_remat_block, blk, h, segments,
-                               autograd.is_training(), use_reentrant=False)
+                h = _remat_block(blk, h, segments)
+        elif segments is None:
+            h = self.blocks(h)
         else:
+            # HybridSequential forwards one input: thread the ids by hand
             for blk in self.blocks:
                 h = blk(h, segments)
         h = self.ln_f(h)
         # tied head: one [B·T, C] x [C, V] product against the embedding
-        return h @ self.wte.t()
-
-    def load_params(self, filename, device=None, ctx=None):
-        """Load a V2 ``.params`` file (as Gluon's ``save_params`` writes
-        it, names with or without the ``gptlm<N>_`` prefix) into the net on
-        ``device`` (or Gluon's ``ctx``), as :func:`load_jax_params` places
-        it."""
-        arrays, names = load_ndarray_file(filename)
-        return load_jax_params(self, dict(zip(names, arrays)),
-                               _device_arg(device, ctx))
+        return F.FullyConnected(h, wte, num_hidden=self._vocab,
+                                no_bias=True, flatten=False)
 
 
 _MODEL_PREFIX = re.compile(r"^gptlm\d+_")
 
 
 def load_jax_params(net, arrays, device=None):
-    """Copy ``{gluon_name: array}`` into ``net`` and place it on ``device``.
+    """Copy ``{gluon_name: array}`` into ``net``'s parameters on
+    ``device``.
 
     ``device`` defaults to the first CUDA card and raises without one
-    unless ``"cpu"`` is asked for, as :meth:`~..nn.Block.initialize` does.
-    The names may carry the model's ``gptlm<N>_`` prefix (as the JAX
-    package's ``net.collect_params()`` gives them) or not (as a
-    ``.params`` file stores them).  Every parameter must be given exactly
-    once with its exact shape; anything missing, extra or misshapen
-    raises ``ValueError``.  Returns ``net``."""
+    unless ``"cpu"`` is asked for, as ``initialize`` does.  The names may
+    carry the model's ``gptlm<N>_`` prefix (as the JAX package's
+    ``net.collect_params()`` gives them) or not (as a ``.params`` file
+    stores them).  Every parameter must be given exactly once with its
+    exact shape; anything missing, extra or misshapen raises
+    ``ValueError``.  Returns ``net``."""
     dev = resolve_device(device)
     own = {_MODEL_PREFIX.sub("", n, count=1): p
            for n, p in net.collect_params().items()}
@@ -211,15 +234,17 @@ def load_jax_params(net, arrays, device=None):
     if missing or extra:
         raise ValueError("parameter names do not match the model: "
                          "missing %s, unexpected %s" % (missing, extra))
-    with torch.no_grad():
-        for key, p in own.items():
-            a = np.array(given[key], dtype=np.float32)
-            if a.shape != tuple(p.shape):
-                raise ValueError("parameter %r has shape %r, the model "
-                                 "wants %r" % (key, a.shape,
-                                               tuple(p.shape)))
-            p.copy_(torch.from_numpy(a))
-    return net.to(dev)
+    for key, p in own.items():
+        a = np.array(given[key], dtype=np.float32)
+        if a.shape != tuple(p.shape):
+            raise ValueError("parameter %r has shape %r, the model wants "
+                             "%r" % (key, a.shape, tuple(p.shape)))
+    for key, p in own.items():
+        value = torch.from_numpy(np.array(given[key], dtype=np.float32))
+        if p._data is not None:
+            p.reset_ctx(dev)
+        p.set_data(value.to(dev))
+    return net
 
 
 def _pad_vocab(v, mult=128):
@@ -229,7 +254,10 @@ def _pad_vocab(v, mult=128):
 def packed_positions(segments):
     """Per-row positions that restart at each segment boundary, so a packed
     document sees the same ``wpe`` rows as standalone.  ``segments``
-    ``[B, T]`` -> int32 ``[B, T]``."""
+    ``[B, T]`` (a tensor, or an NDArray for an NDArray back) -> int32
+    ``[B, T]``."""
+    if isinstance(segments, NDArray):
+        return NDArray(packed_positions(segments._data), segments._device)
     seg = torch.as_tensor(segments)
     idx = torch.arange(seg.shape[1], device=seg.device)[None, :]
     change = torch.cat([torch.ones_like(seg[:, :1], dtype=torch.bool),
@@ -321,12 +349,12 @@ def _decode_params(net):
     """fp32 copies of the net's weights indexed by layer, read from the
     live child blocks (the tree every serving program takes as ``p``)."""
     def g(param):
-        return param.detach().float().clone()
+        return param.data()._data.detach().float().clone()
 
     def bias(dense):
         if dense.bias is None:
             return torch.zeros(dense._units, dtype=torch.float32,
-                               device=dense.weight.device)
+                               device=dense.weight.data()._device)
         return g(dense.bias)
 
     layers = []

@@ -1,338 +1,391 @@
-"""Gluon-named layers as ``torch.nn.Module``s.
+"""Gluon basic layers (counterpart of
+``mxnet_tpu/gluon/nn/basic_layers.py``): ``Sequential``,
+``HybridSequential``, ``Dense``, ``Activation``, ``Dropout``,
+``BatchNorm``, ``LeakyReLU``, ``Embedding``, ``FlashSelfAttention``,
+``LayerNorm``, ``GELU``, ``Flatten``, ``Lambda`` and ``HybridLambda``,
+every one with the reference's signature, names and deferred shapes.
 
-Each layer holds its parameters in the same layout as the JAX package's
-Gluon layer (``mxnet_tpu/gluon/nn/basic_layers.py``) and reports them
-under the same names, so weights cross between the packages through one
-``.params`` file:
-
-- :class:`Block` gives a module a Gluon ``prefix``; its
-  :meth:`Block.collect_params` composes prefixes down the tree exactly
-  as Gluon's name scopes do (``gptlm0_`` + ``h_`` + ``gptblock0_`` +
-  ``attn_`` + ``qkv_`` + ``weight``).  :meth:`Block.initialize` places and
-  fills the parameters, :meth:`Block.save_params` writes them; a block
-  called outside :func:`~mxnet_tpu_torch.autograd.record` runs under
-  ``torch.no_grad()``;
-- :class:`Dense` keeps MXNet's ``[out, in]`` weight;
-- :class:`LayerNorm` keeps ``gamma``/``beta`` (eps 1e-5, biased variance,
-  statistics in fp32);
-- :class:`FlashSelfAttention` keeps the head-major fused qkv projection
-  (output rows ordered ``[H, 3, D]``) and attends through the flash
-  kernels (:mod:`mxnet_tpu_torch.ops.flash_attention`).
+Each layer's compute is one registry-op call through ``F``
+(:mod:`..block`), so the same code runs eager on NDArrays, on raw
+tensors, and hybridized by either route.  ``Dense`` keeps MXNet's ``[out,
+in]`` weight; ``LayerNorm`` runs its statistics in at least fp32;
+``FlashSelfAttention`` keeps the head-major fused qkv projection (output
+rows ordered ``[H, 3, D]``, which the serving path reads) and attends
+through ``F._contrib_flash_attention``, the flash kernels (B1 forward, B2
++ B3 or B7 backward).  Ring attention over a mesh
+(``sequence_parallel``) belongs to the multi-device slice.
 """
 from __future__ import annotations
 
-import collections
-import contextlib
-import threading
+import numpy as _np
 
-import numpy as np
-import torch
-import torch.nn.functional as F
-from torch import nn
+from ..block import Block, HybridBlock
 
-from ... import autograd
-from ...ops.flash_attention import flash_attention
-from ...ops.nn import _activation
-
-__all__ = ["Block", "Sequential", "Dense", "LayerNorm",
-           "FlashSelfAttention"]
-
-
-_scope = threading.local()
-#: default-name counts of blocks made outside any name scope, by class
-_GLOBAL_COUNTERS = {}
-
-
-class Block(nn.Module):
-    """A module with a Gluon name prefix.  Parameters registered as
-    attributes are named ``prefix + attribute`` unless
-    ``_gluon_names`` maps the attribute to another Gluon suffix.
-
-    Prefixes follow Gluon's name scopes (the reference's
-    ``_BlockScope.create``): a block made inside ``with
-    parent.name_scope():`` takes its prefix relative to ``parent``
-    (``prefix=None`` counts per class within that parent: ``dense0_``,
-    ``dense1_``) and ``parent.collect_params`` puts ``parent.prefix`` in
-    front of its names; a block made outside any scope keeps its prefix
-    as it is (``prefix=None`` counts per class over the process)."""
-
-    _gluon_names = {}
-
-    def __init__(self, prefix=None):
-        super().__init__()
-        current = getattr(_scope, "value", None)
-        hint = type(self).__name__.lower()
-        if prefix is None:
-            counter = _GLOBAL_COUNTERS if current is None \
-                else current._counter
-            count = counter.get(hint, 0)
-            counter[hint] = count + 1
-            prefix = "%s%d_" % (hint, count)
-        self.prefix = prefix
-        self._scoped = current is not None
-        self._counter = {}
-        #: parameter attribute -> initializer given at construction
-        self._inits = {}
-
-    @contextlib.contextmanager
-    def name_scope(self):
-        """Blocks made inside take their default names from this block's
-        per-class counter and their names under its prefix.  A block
-        with an empty prefix opens no scope of its own, as in Gluon."""
-        if self.prefix == "":
-            yield self
-            return
-        old = getattr(_scope, "value", None)
-        _scope.value = self
-        try:
-            yield self
-        finally:
-            _scope.value = old
-
-    def _param(self, shape, fill=0.0):
-        return nn.Parameter(torch.full(tuple(shape), float(fill),
-                                       dtype=torch.float32))
-
-    def __call__(self, *args, **kwargs):
-        # MXNet records a graph only inside autograd.record()
-        if autograd.is_recording():
-            return super().__call__(*args, **kwargs)
-        with torch.no_grad():
-            return super().__call__(*args, **kwargs)
-
-    def collect_params(self):
-        """Ordered ``{gluon_name: Parameter}`` over this block's tree, in
-        registration order (the order Gluon's ``collect_params`` walks)."""
-        out = collections.OrderedDict()
-        for attr, p in self._parameters.items():
-            if p is not None:
-                out[self.prefix + self._gluon_names.get(attr, attr)] = p
-        for child in self.children():
-            if isinstance(child, Block):
-                outer = self.prefix if child._scoped else ""
-                for name, p in child.collect_params().items():
-                    out[outer + name] = p
-        return out
-
-    def _param_inits(self):
-        """``{id(parameter): initializer}`` for the parameters given an
-        initializer at construction, over this block's tree."""
-        out = {id(getattr(self, attr)): init
-               for attr, init in self._inits.items()
-               if init is not None and getattr(self, attr) is not None}
-        for child in self.children():
-            if isinstance(child, Block):
-                out.update(child._param_inits())
-        return out
-
-    def initialize(self, init=None, device=None, generator=None, ctx=None):
-        """Place every parameter on ``device`` and fill it: a parameter
-        given an initializer at construction (``weight_initializer``,
-        ...) by that one, every other by Gluon's name dispatch
-        (``bias``/``beta`` 0, ``gamma`` 1, ``weight`` by ``init``, default
-        :class:`~mxnet_tpu_torch.initializer.Uniform`).
-
-        ``device`` (or Gluon's ``ctx``: ``mx.cpu()``, ``"cpu"``, a
-        ``torch.device``) defaults to the first CUDA card
-        and raises without one unless ``"cpu"`` is asked for.  Draws come
-        from ``generator`` (a ``torch.Generator`` on ``device``), by
-        default one seeded from torch's global generator, so
-        ``torch.manual_seed`` fixes them.  Returns ``self``."""
-        from ... import initializer as init_mod
-        from ...context import resolve_device
-        dev = resolve_device(_device_arg(device, ctx))
-        init = init_mod.Uniform() if init is None else init_mod.create(init)
-        self.to(dev)
-        if generator is None:
-            generator = torch.Generator(device=dev)
-            generator.manual_seed(int(torch.randint(0, 2 ** 62, (1,))))
-        own = self._param_inits()
-        for name, p in self.collect_params().items():
-            if id(p) in own:
-                with torch.no_grad():
-                    init_mod.create(own[id(p)])._init_weight(name, p.data,
-                                                             generator)
-            else:
-                init(name, p.data, generator)
-        return self
-
-    def save_params(self, filename):
-        """Write every parameter to a V2 ``.params`` file under its Gluon
-        name with this block's prefix taken off where it starts the name,
-        as Gluon's ``save_params`` stores them, so the JAX package's
-        ``load_params`` reads it."""
-        from ...ndarray import save_ndarray_list
-        names, arrays = [], []
-        for name, p in self.collect_params().items():
-            if self.prefix and name.startswith(self.prefix):
-                name = name[len(self.prefix):]
-            names.append(name)
-            arrays.append(p.detach().float().cpu().numpy())
-        save_ndarray_list(filename, arrays, names)
-
-    def load_params(self, filename, device=None, ctx=None):
-        """Load a V2 ``.params`` file as Gluon's ``load_params`` does:
-        each stored name with this block's prefix put back in front
-        (unless it is there already) must name one of its parameters, of
-        the same shape, and every parameter must be given; then place
-        the block on ``device`` (or ``ctx``), as :meth:`initialize` does.
-        Returns ``self``."""
-        from ...context import resolve_device
-        from ...ndarray import load_ndarray_file
-        dev = resolve_device(_device_arg(device, ctx))
-        arrays, names = load_ndarray_file(filename)
-        given = {n if n.startswith(self.prefix) else self.prefix + n: a
-                 for n, a in zip(names, arrays)}
-        own = self.collect_params()
-        missing = sorted(set(own) - set(given))
-        extra = sorted(set(given) - set(own))
-        if missing or extra:
-            raise ValueError("parameter names do not match the block: "
-                             "missing %s, unexpected %s" % (missing, extra))
-        with torch.no_grad():
-            for name, p in own.items():
-                a = torch.from_numpy(np.array(given[name], np.float32))
-                if tuple(a.shape) != tuple(p.shape):
-                    raise ValueError("parameter %r has shape %r, the block "
-                                     "wants %r" % (name, tuple(a.shape),
-                                                   tuple(p.shape)))
-                p.copy_(a)
-        return self.to(dev)
+__all__ = ["Sequential", "HybridSequential", "Dense", "Activation",
+           "FlashSelfAttention", "LayerNorm", "GELU",
+           "Dropout", "BatchNorm", "LeakyReLU", "Embedding", "Flatten",
+           "Lambda", "HybridLambda"]
 
 
 class Sequential(Block):
-    """Ordered children under one prefix (Gluon ``HybridSequential``)."""
+    """Stack Blocks sequentially (reference basic_layers.py:29)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
 
     def add(self, *blocks):
-        for blk in blocks:
-            self.add_module(str(len(self._modules)), blk)
+        for block in blocks:
+            self.register_child(block)
+
+    def forward(self, x):
+        for block in self._children:
+            x = block(x)
+        return x
 
     def __len__(self):
-        return len(self._modules)
+        return len(self._children)
 
     def __getitem__(self, i):
-        return list(self._modules.values())[i]
+        return self._children[i]
 
     def __iter__(self):
-        return iter(self._modules.values())
+        return iter(self._children)
 
 
-def _device_arg(device, ctx):
-    """One device from ``device=`` or Gluon's ``ctx=`` (``mx.cpu()``,
-    ``mx.gpu(i)``: both are ``torch.device`` values in the port)."""
-    if ctx is None:
-        return device
-    if device is not None:
-        raise ValueError("give device or ctx, not both")
-    return ctx
+class HybridSequential(HybridBlock):
+    """Stack HybridBlocks sequentially (reference basic_layers.py:53)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+
+    def hybrid_forward(self, F, x):
+        for block in self._children:
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, i):
+        return self._children[i]
+
+    def __iter__(self):
+        return iter(self._children)
 
 
-def _shape_given(name, n):
-    if int(n) <= 0:
-        raise ValueError(
-            "%s=%r: deferred shape inference is not in the port yet, so "
-            "give the input size" % (name, n))
-    return int(n)
-
-
-class Dense(Block):
-    """Fully-connected layer, Gluon's signature and meaning: weight
-    ``[units, in_units]`` (MXNet's ``[out, in]``), optional bias
-    ``[units]``, then ``activation`` (an ``Activation`` ``act_type``)
-    if given.  ``flatten=True`` folds every axis but the first into the
-    input (``[N, ...]`` -> ``[N, in_units]``); ``flatten=False`` applies
-    the layer over the last axis.  ``in_units`` must be given (> 0):
-    the port has no deferred shape inference yet."""
+class Dense(HybridBlock):
+    """Fully-connected layer (reference basic_layers.py:77)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  weight_initializer=None, bias_initializer="zeros",
-                 in_units=0, prefix=None):
-        super().__init__(prefix)
-        self._units = int(units)
-        self._flatten = bool(flatten)
-        self._act = activation
-        self.weight = self._param((units, _shape_given("in_units",
-                                                       in_units)))
-        self.bias = self._param((units,)) if use_bias else None
-        self._inits = {"weight": weight_initializer,
-                       "bias": bias_initializer if use_bias else None}
+                 in_units=0, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self._units = units
+            self._in_units = in_units
+            self._flatten = flatten
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units),
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,),
+                    init=_init_from_name(bias_initializer),
+                    allow_deferred_init=True)
+            else:
+                self.bias = None
+            if activation is not None:
+                self.act = Activation(activation, prefix=activation + "_")
+            else:
+                self.act = None
 
-    def forward(self, x):
-        if self._flatten and x.dim() != 2:
-            x = x.reshape(x.shape[0], -1)
-        # one linear op, so autocast gives the bias the product's dtype
-        y = F.linear(x, self.weight, self.bias)
-        return y if self._act is None else _activation(y, self._act)
+    def infer_shape(self, x):
+        in_units = int(_np.prod(x.shape[1:])) if self._flatten \
+            else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
+
+    def hybrid_forward(self, F, x, weight, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, num_hidden=self._units,
+                                   no_bias=True, flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten)
+        if self.act is not None:
+            out = self.act(out)
+        return out
+
+    def __repr__(self):
+        return "Dense({0} -> {1})".format(
+            self.weight.shape[1] if self.weight.shape else None,
+            self._units)
 
 
-class LayerNorm(Block):
-    """Layer normalization over ``axis``, Gluon's signature and meaning:
-    biased variance, ``gamma`` starts at 1 and ``beta`` at 0 (by
-    ``gamma_initializer``/``beta_initializer``); ``center=False`` or
-    ``scale=False`` leaves ``beta``/``gamma`` out of training (grad_req
-    ``null``).  Statistics run in at least fp32 and the result comes back
-    in the input's dtype, as the reference's ``LayerNorm`` op does.
-    ``in_channels`` must be given (> 0)."""
+class Activation(HybridBlock):
+    """Activation layer (reference basic_layers.py:154)."""
 
-    def __init__(self, epsilon=1e-5, axis=-1, center=True, scale=True,
+    def __init__(self, activation, **kwargs):
+        self._act_type = activation
+        super().__init__(**kwargs)
+
+    def _alias(self):
+        return self._act_type
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return "Activation({})".format(self._act_type)
+
+
+class Dropout(HybridBlock):
+    """Dropout (reference basic_layers.py:179)."""
+
+    def __init__(self, rate, **kwargs):
+        super().__init__(**kwargs)
+        self._rate = rate
+
+    def hybrid_forward(self, F, x):
+        return F.Dropout(x, p=self._rate)
+
+    def __repr__(self):
+        return "Dropout(p = {})".format(self._rate)
+
+
+class BatchNorm(HybridBlock):
+    """Batch normalization (reference basic_layers.py:209)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
                  beta_initializer="zeros", gamma_initializer="ones",
-                 in_channels=0, prefix=None):
-        super().__init__(prefix)
-        self._eps = float(epsilon)
-        self._axis = int(axis)
-        n = _shape_given("in_channels", in_channels)
-        self.gamma = self._param((n,), 1.0)
-        self.beta = self._param((n,), 0.0)
-        self.gamma.requires_grad_(bool(scale))
-        self.beta.requires_grad_(bool(center))
-        self._inits = {"gamma": gamma_initializer, "beta": beta_initializer}
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"axis": axis, "eps": epsilon, "momentum": momentum,
+                        "fix_gamma": not scale,
+                        "use_global_stats": use_global_stats}
+        self._axis = axis
+        if in_channels != 0:
+            self.in_channels = in_channels
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=_init_from_name(gamma_initializer),
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=_init_from_name(beta_initializer),
+            allow_deferred_init=True)
+        self.running_mean = self.params.get(
+            "running_mean", grad_req="null", shape=(in_channels,),
+            init=_init_from_name(running_mean_initializer),
+            allow_deferred_init=True, differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", grad_req="null", shape=(in_channels,),
+            init=_init_from_name(running_variance_initializer),
+            allow_deferred_init=True, differentiable=False)
 
-    def forward(self, x):
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        axis = self._axis % x.dim()
-        shape = [1] * x.dim()
-        shape[axis] = x.shape[axis]
-        mu = xf.mean(axis, keepdim=True)
-        var = (xf - mu).square().mean(axis, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + self._eps) \
-            * self.gamma.to(xf.dtype).reshape(shape) \
-            + self.beta.to(xf.dtype).reshape(shape)
-        return y.to(x.dtype)
+    def infer_shape(self, x):
+        c = x.shape[self._axis % len(x.shape)]
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            p.shape = (c,)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           **self._kwargs)
+
+    def __repr__(self):
+        in_channels = self.gamma.shape[0] if self.gamma.shape else None
+        return "BatchNorm(axis={}, eps={}, momentum={}, in_channels={})" \
+            .format(self._kwargs["axis"], self._kwargs["eps"],
+                    self._kwargs["momentum"], in_channels)
 
 
-class FlashSelfAttention(Block):
-    """Multi-head self-attention over ``[B, T, C]``: a fused ``qkv`` Dense
-    whose ``3 * units`` output rows are HEAD-MAJOR ``[H, 3, D]`` (row
-    ``(h * 3 + j) * D + d`` is part ``j`` of head ``h``), the flash
-    kernels, and an ``out`` Dense.  The serving path reads these weights
-    directly (``gluon.model_zoo.gpt.decode_params``)."""
+class LeakyReLU(HybridBlock):
+    """Leaky ReLU (reference basic_layers.py:273)."""
+
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+    def __repr__(self):
+        return "LeakyReLU({})".format(self._alpha)
+
+
+class Embedding(HybridBlock):
+    """Index → vector lookup (reference basic_layers.py:297)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        self._kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                        "dtype": dtype}
+        self.weight = self.params.get(
+            "weight", shape=(input_dim, output_dim),
+            init=weight_initializer, allow_deferred_init=True)
+
+    def hybrid_forward(self, F, x, weight):
+        return F.Embedding(x, weight, **self._kwargs)
+
+    def __repr__(self):
+        return "Embedding({} -> {})".format(
+            self._kwargs["input_dim"], self._kwargs["output_dim"])
+
+
+class FlashSelfAttention(HybridBlock):
+    """Multi-head self-attention over ``[B, T, C]`` through the fused
+    O(T)-memory attention op (``_contrib_flash_attention``: the flash
+    kernels on the card).  ``segments`` (``[B, T]`` int ids) packs
+    sequences: a token attends within its segment."""
 
     def __init__(self, units, num_heads, causal=False, use_bias=True,
-                 in_units=0, prefix=None):
-        super().__init__(prefix)
+                 weight_initializer=None, in_units=0, **kwargs):
+        super().__init__(**kwargs)
         if units % num_heads:
             raise ValueError("units %d not divisible by num_heads %d"
                              % (units, num_heads))
-        self._units = int(units)
-        self._num_heads = int(num_heads)
-        self._causal = bool(causal)
+        self._units = units
+        self._num_heads = num_heads
+        self._causal = causal
         with self.name_scope():
             self.qkv = Dense(3 * units, flatten=False, use_bias=use_bias,
-                             in_units=in_units or units, prefix="qkv_")
+                             weight_initializer=weight_initializer,
+                             in_units=in_units, prefix="qkv_")
             self.out_proj = Dense(units, flatten=False, use_bias=use_bias,
+                                  weight_initializer=weight_initializer,
                                   in_units=units, prefix="out_")
 
-    def forward(self, x, segments=None):
-        """``x`` ``[B, T, C]``; ``segments`` ``[B, T]`` int ids for
-        sequence packing (tokens attend within their segment)."""
+    def hybrid_forward(self, F, x, segments=None):
         b, t = x.shape[0], x.shape[1]
         h = self._num_heads
         d = self._units // h
-        qkv = self.qkv(x).reshape(b, t, h, 3, d)
-        qkv = qkv.permute(3, 0, 2, 1, 4)              # [3, B, H, T, D]
-        # q, k and v are strided views here; flash_attention copies them
-        # contiguous before the kernels
-        o = flash_attention(qkv[0], qkv[1], qkv[2], causal=self._causal,
-                            segment_ids=segments)     # [B, H, T, D]
-        o = o.transpose(1, 2).reshape(b, t, self._units)
+        qkv = self.qkv(x)                        # [B, T, 3C]
+        # HEAD-MAJOR fused layout [H, 3, D], the reference's (a
+        # tensor-parallel split of the qkv rows lands on whole heads)
+        qkv = F.reshape(qkv, shape=(b, t, h, 3, d))
+        qkv = F.transpose(qkv, axes=(3, 0, 2, 1, 4))  # [3, B, H, T, D]
+        q = F.reshape(F.slice_axis(qkv, axis=0, begin=0, end=1),
+                      shape=(b, h, t, d))
+        k = F.reshape(F.slice_axis(qkv, axis=0, begin=1, end=2),
+                      shape=(b, h, t, d))
+        v = F.reshape(F.slice_axis(qkv, axis=0, begin=2, end=3),
+                      shape=(b, h, t, d))
+        attn = getattr(F, "_contrib_flash_attention")
+        if segments is None:
+            o = attn(q, k, v, causal=self._causal)  # [B, H, T, D]
+        else:
+            # sequence packing: [B, T] int ids, attend within-segment
+            o = attn(q, k, v, segments, causal=self._causal,
+                     use_segments=True)
+        o = F.reshape(F.transpose(o, axes=(0, 2, 1, 3)),
+                      shape=(b, t, self._units))
         return self.out_proj(o)
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalization over ``axis``: biased variance, statistics in at
+    least fp32 and the result in the input's dtype (the ``LayerNorm``
+    op); ``center=False``/``scale=False`` leave ``beta``/``gamma`` out of
+    training (``grad_req="null"``)."""
+
+    def __init__(self, epsilon=1e-5, axis=-1, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,),
+            init=_init_from_name(gamma_initializer),
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,),
+            init=_init_from_name(beta_initializer),
+            allow_deferred_init=True)
+
+    def infer_shape(self, x):
+        dim = x.shape[self._axis]
+        self.gamma.shape = (dim,)
+        self.beta.shape = (dim,)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+    def __repr__(self):
+        return "LayerNorm(eps={}, axis={})".format(self._epsilon,
+                                                   self._axis)
+
+
+class GELU(HybridBlock):
+    """Gaussian error linear unit (the tanh form)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type="gelu")
+
+    def __repr__(self):
+        return "GELU"
+
+
+class Flatten(HybridBlock):
+    """Flatten to (N, -1) (reference basic_layers.py:331)."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Lambda(Block):
+    """Wrap a function as a Block."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd_mod
+            assert hasattr(nd_mod, function), \
+                "Function name %s is not found in ndarray." % function
+            self._func_impl = getattr(nd_mod, function)
+        else:
+            self._func_impl = function
+
+    def forward(self, *args):
+        return self._func_impl(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wrap a function as a HybridBlock."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name = function
+
+            def _fn(F, *args):
+                return getattr(F, function)(*args)
+            self._func_impl = _fn
+        else:
+            self._func_impl = lambda F, *args: function(F, *args)
+            self._func_name = function.__name__
+
+    def hybrid_forward(self, F, x, *args):
+        return self._func_impl(F, x, *args)
+
+
+def _init_from_name(name):
+    if name is None or not isinstance(name, str):
+        return name
+    from ... import initializer as init_mod
+    return init_mod.create(name)

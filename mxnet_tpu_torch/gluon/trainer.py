@@ -10,7 +10,11 @@ block, as the Gluon loop drives it::
     loss.backward()
     trainer.step(batch_size)
 
-Laws of the reference, with their torch meaning:
+``params`` is a :class:`~.parameter.ParameterDict` (``collect_params()``)
+or a list of :class:`~.parameter.Parameter`; the Trainer reads each one's
+gradient buffer (``param.grad()``), skips ``grad_req="null"`` ones, and
+updates ``param.data()`` in place.  Laws of the reference, with their
+torch meaning:
 
 - SGD, SGD with momentum and Adam update every parameter as ONE
   multi-tensor update (``ops.optimizer_ops.make_fused_apply``,
@@ -28,10 +32,12 @@ Laws of the reference, with their torch meaning:
   when state is saved or handed over), so ``step`` never waits for the
   device; after ``MXTPU_MAX_CONSECUTIVE_SKIPS`` consecutive skips the next
   ``step`` raises ``MXNetError``.
-- MXNet's default ``grad_req="write"`` overwrites every gradient on each
-  ``backward()``, while torch adds into ``.grad``: the Trainer therefore
-  clears every gradient after its update (``.grad = None``), so step n
-  uses only the gradient of the backward that preceded it.
+- A step uses whatever the gradient buffers hold and leaves them as they
+  are: ``param.grad()`` after ``step`` is the last backward's gradient,
+  and the next backward overwrites it (``grad_req="write"``) or adds to
+  it (``"add"``), as in the reference, whose Trainer clears nothing and
+  does not check for stale gradients (``ignore_stale_grad`` is accepted
+  for its signature).
 
 ``kvstore="device"`` (or ``"local"``/``None``) on one card means no
 kvstore at all; the ``dist*`` kinds belong to the multi-device slice and
@@ -39,36 +45,33 @@ raise.
 """
 from __future__ import annotations
 
-import torch
-
 from .. import optimizer as opt
 from ..ops.optimizer_ops import max_consecutive_skips, raise_skip_limit_error
+from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
 
 
 class Trainer:
     def __init__(self, params, optimizer, optimizer_params=None,
-                 kvstore="device"):
-        if isinstance(params, dict):
-            named = list(params.items())
-        elif isinstance(params, (list, tuple)):
-            # a bare list has no Gluon names (a tensor's .name is None)
-            named = [(getattr(p, "name", None) or "param%d" % i, p)
-                     for i, p in enumerate(params)]
-        else:
-            raise ValueError("First argument must be a list or dict of "
-                             "Parameters, got %s." % type(params))
-        for _, p in named:
-            if not isinstance(p, torch.nn.Parameter):
-                raise ValueError("First argument must be a list or dict of "
-                                 "Parameters, got list of %s." % type(p))
+                 kvstore="device", compression_params=None):
+        if isinstance(params, (dict, ParameterDict)):
+            params = list(params.values())
+        if not isinstance(params, (list, tuple)):
+            raise ValueError(
+                "First argument must be a list or dict of Parameters, "
+                "got %s." % (type(params)))
+        for param in params:
+            if not isinstance(param, Parameter):
+                raise ValueError(
+                    "First argument must be a list or dict of Parameters, "
+                    "got list of %s." % (type(param)))
         if kvstore not in ("device", "local", None):
             raise NotImplementedError(
                 "kvstore %r: distributed kvstores belong to the "
                 "multi-device slice of the port" % (kvstore,))
-        self._names = [n for n, _ in named]
-        self._params = [p for _, p in named]
+        self._params = list(params)
+        self._names = [p.name for p in self._params]
         optimizer_params = dict(optimizer_params or {})
         self._scale = optimizer_params.get("rescale_grad", 1.0)
         if isinstance(optimizer, opt.Optimizer):
@@ -82,11 +85,9 @@ class Trainer:
                 **optimizer_params)
         # a Parameter's own multipliers, keyed by index as Gluon keys them
         self._optimizer.set_lr_mult(
-            {i: getattr(p, "lr_mult", 1.0)
-             for i, p in enumerate(self._params)})
+            {i: p.lr_mult for i, p in enumerate(self._params)})
         self._optimizer.set_wd_mult(
-            {i: getattr(p, "wd_mult", 1.0)
-             for i, p in enumerate(self._params)})
+            {i: p.wd_mult for i, p in enumerate(self._params)})
         self._updaters = opt.get_updater(self._optimizer)
         # the fused update and its state; the verdict is read a step late
         self._fused = opt.FusedUpdate(self._optimizer, self._updaters,
@@ -112,51 +113,39 @@ class Trainer:
         self._optimizer.lr = lr
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """One optimizer step with gradients scaled by ``1 / batch_size``;
-        every gradient is cleared after its update.  A trainable parameter
-        without a gradient (none since the last step) raises unless
-        ``ignore_stale_grad``, which skips it."""
+        """One optimizer step over every parameter whose ``grad_req`` is
+        not ``null``, with gradients scaled by ``1 / batch_size``."""
         self._fused.resolve()
         limit = max_consecutive_skips()
         if self._fused.streak >= limit:
             raise_skip_limit_error(limit)
         self._optimizer.rescale_grad = self._scale / batch_size
-        live = []
-        for i, p in enumerate(self._params):
-            if not p.requires_grad:
-                continue                          # grad_req "null"
-            if p.grad is None:
-                if ignore_stale_grad:
-                    continue
-                raise RuntimeError(
-                    "Gradient of Parameter `%s` has not been updated by "
-                    "backward since last `step`; call step with "
-                    "ignore_stale_grad=True to skip it" % self._names[i])
-            live.append((i, p))
+        # detached aliases of the leaves: the update writes their storage
+        live = [(i, p.data()._data.detach(), p.grad()._data)
+                for i, p in enumerate(self._params) if p.grad_req != "null"]
         if not self._fused_step(live):
-            for i, p in live:
-                self._updaters(i, p.grad, p.data)
-        for _, p in live:
-            p.grad = None
+            for i, weight, grad in live:
+                self._updaters(i, grad, weight)
 
     # -- fused multi-tensor step -------------------------------------------
     def _fused_step(self, live):
-        """Update ``live`` as one guarded multi-tensor update.  Returns
-        False when the configuration cannot fuse (the caller then runs the
-        per-parameter loop, which starts from the fused state)."""
+        """Update ``live`` (``(index, weight, grad)``) as one guarded
+        multi-tensor update.  Returns False when the configuration cannot
+        fuse (the caller then runs the per-parameter loop, which starts
+        from the fused state)."""
         fused = self._fused
         if self._optimizer.fused_kind() is None or \
-                len({id(p) for _, p in live}) != len(live):
+                len({id(self._params[i]) for i, _, _ in live}) != len(live):
             fused.drop()
             return False
         if not live:
             return True
-        keys = {i: str(i) for i, _ in live}
-        params = {keys[i]: p.data for i, p in live}
+        keys = {i: str(i) for i, _, _ in live}
+        params = {keys[i]: w for i, w, _ in live}
         fused.configure(keys, params)
         lr, wd, rescale, t = fused.begin()
         fused.finish(fused.guarded(
-            params, {keys[i]: p.grad for i, p in live}, fused.state, lr, wd,
+            params, {keys[i]: g for i, _, g in live}, fused.state, lr, wd,
             rescale, t))
         return True
 

@@ -129,11 +129,9 @@ def apply_node(node, inputs, train, device):
     folding and shape inference share: ``_train`` for train-dependent ops,
     ``_device`` for ops with no array inputs, and the split into visible
     outputs and trailing auxiliary-update extras.  Returns ``(vis,
-    extra)``.  An op that draws random numbers raises: the random ops are
-    not ported yet (the reference folds a per-node key in here)."""
-    if node.op.needs_rng:
-        raise MXNetError("operator %s draws random numbers; the random ops "
-                         "are not ported yet" % node.op.name)
+    extra)``.  An op that draws random numbers (``Dropout``) draws from
+    :mod:`mxnet_tpu_torch.random`'s generator of its device (the reference
+    folds a per-node key in here)."""
     params = dict(node.params)
     if node.op.takes_train:
         params["_train"] = train

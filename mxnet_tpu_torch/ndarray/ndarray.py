@@ -27,7 +27,7 @@ import numpy as _np
 import torch
 
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import Context, as_device, resolve_device
 
 __all__ = ["NDArray", "array", "empty", "zeros", "ones", "full", "arange",
            "concatenate", "moveaxis", "imperative_invoke", "waitall",
@@ -103,7 +103,7 @@ class NDArray:
             raise TypeError("NDArray holds a torch.Tensor, got %s"
                             % type(data).__name__)
         self._data = data
-        self._device = data.device if device is None else torch.device(device)
+        self._device = data.device if device is None else as_device(device)
         self._grad = None
         self._grad_req = None
 
@@ -126,7 +126,8 @@ class NDArray:
 
     @property
     def context(self):
-        return self._device
+        """The array's device as a :class:`~..context.Context`."""
+        return Context(self._device)
 
     ctx = context
 
@@ -156,7 +157,7 @@ class NDArray:
     def __repr__(self):
         return "%s\n<NDArray %s @%s>" % (
             str(self.asnumpy()), "x".join(str(s) for s in self.shape),
-            self._device)
+            self.context)
 
     def __bool__(self):
         if self.size == 1:
@@ -175,10 +176,13 @@ class NDArray:
     # -- conversions -------------------------------------------------------
     def asnumpy(self):
         """A numpy copy (bfloat16 comes back as float32: numpy has no
-        bfloat16)."""
+        bfloat16).  A copy on the host too: torch's ``numpy()`` would share
+        the memory an in-place update (the Trainer's) later writes."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
             t = t.float()
+        if t.device.type == "cpu":
+            return t.numpy().copy()
         return t.cpu().numpy()
 
     def asscalar(self):
@@ -203,11 +207,11 @@ class NDArray:
                 raise MXNetError("cannot copy an array onto itself")
             other._set_data(self._data.detach().to(other._device, copy=True))
             return other
-        dev = torch.device(other)
+        dev = as_device(other)
         return NDArray(self._data.detach().to(dev, copy=True), dev)
 
     def as_in_context(self, context):
-        if torch.device(context) == self._device:
+        if as_device(context) == self._device:
             return self
         return self.copyto(context)
 
@@ -260,12 +264,18 @@ class NDArray:
     # -- mutation ----------------------------------------------------------
     def _set_data(self, new_data):
         """Swap the held tensor (a marked array stays a leaf: a tensor
-        with history is detached, and the tensor requires grad)."""
+        with history is detached, the tensor requires grad, and its
+        ``.grad`` is the gradient buffer)."""
         if self._grad_req not in (None, "null") and \
                 new_data.is_floating_point():
             if new_data.grad_fn is not None:
                 new_data = new_data.detach()
             new_data.requires_grad_(True)
+            buf = self._grad._data if self._grad is not None else None
+            if buf is not None and buf.shape == new_data.shape and \
+                    buf.dtype == new_data.dtype and \
+                    buf.device == new_data.device:
+                new_data.grad = buf
         self._data = new_data
 
     def _assign(self, value):
@@ -287,22 +297,57 @@ class NDArray:
             raise TypeError("cannot assign %s to an NDArray"
                             % type(value).__name__)
         value = _as_tensor(value, self._data.device, self._data.dtype)
+        key, flips = self._canon_key(key)
         with torch.no_grad():
-            self._data[self._canon_key(key)] = value
+            if not flips:
+                self._data[key] = value
+                return
+            # torch has no negative strides: write through the flipped
+            # array and flip it back
+            flipped = self._data.flip(flips)
+            flipped[key] = value
+            self._data.copy_(flipped.flip(flips))
 
     def _canon_key(self, key):
-        def conv(k):
-            if isinstance(k, NDArray):
-                return k._data.to(torch.int64)
-            return k
-        if isinstance(key, tuple):
-            return tuple(conv(k) for k in key)
-        return conv(key)
+        """``(key, flips)``: the key for torch, with NDArray indices as
+        int64 tensors and every slice of negative step rewritten as the
+        positive-step slice of the same elements along the flipped axis;
+        ``flips`` lists those axes (the reference's jax arrays take
+        negative steps, torch does not)."""
+        entries = list(key) if isinstance(key, tuple) else [key]
+        entries = [k._data.to(torch.int64) if isinstance(k, NDArray) else k
+                   for k in entries]
+        # the axis each entry indexes: Ellipsis takes what the others
+        # leave, None takes none, a boolean mask as many as it has
+        def width(k):
+            if k is None or k is Ellipsis:
+                return 0
+            if isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+                return k.dim()
+            return 1
+        rest = self.ndim - sum(width(k) for k in entries)
+        flips, axis = [], 0
+        for i, k in enumerate(entries):
+            if k is Ellipsis:
+                axis += rest
+                continue
+            if isinstance(k, slice) and k.step is not None and k.step < 0:
+                n = self.shape[axis]
+                start, stop, step = k.indices(n)
+                if (stop - start) * step <= 0:
+                    entries[i] = slice(0, 0)
+                else:
+                    entries[i] = slice(n - 1 - start, n - 1 - stop, -step)
+                flips.append(axis)
+            axis += width(k)
+        key = tuple(entries) if isinstance(key, tuple) else entries[0]
+        return key, flips
 
     def __getitem__(self, key):
+        key, flips = self._canon_key(key)
         with torch.set_grad_enabled(_recording()):
-            return NDArray(self._data[self._canon_key(key)].clone(),
-                           self._device)
+            data = self._data.flip(flips) if flips else self._data
+            return NDArray(data[key].clone(), self._device)
 
     # -- arithmetic --------------------------------------------------------
     def _binary(self, other, op_name, scalar_op_name, reverse=False):

@@ -1,6 +1,13 @@
-"""Neural-network operators the symbolic path uses (counterpart of part of
-``mxnet_tpu/ops/nn.py``): ``FullyConnected``, ``Activation``, ``softmax``,
-``SoftmaxOutput`` and ``LayerNorm``.
+"""Neural-network operators (counterpart of part of
+``mxnet_tpu/ops/nn.py``): ``FullyConnected``, ``Activation``,
+``LeakyReLU``, ``softmax``, ``log_softmax``, ``SoftmaxOutput``,
+``BatchNorm``, ``LayerNorm`` and ``Dropout``.
+
+``BatchNorm`` returns its new moving statistics after its visible outputs
+(``mutate_aux``); the caller writes them into the aux arrays, as the
+reference's imperative invoke and CachedOp do.  ``Dropout`` draws its mask
+from :mod:`mxnet_tpu_torch.random`'s generator of the data's device
+(``needs_rng``: the port's ops take no key argument).
 
 ``SoftmaxOutput`` keeps MXNet's implicit-gradient contract through a
 ``torch.autograd.Function``: its forward is the softmax, and its backward
@@ -60,6 +67,28 @@ def _activation(data, act_type="relu"):
     raise ValueError("unknown act_type %s" % act_type)
 
 
+@register_op("LeakyReLU",
+             arg_names=lambda p: (["data", "gamma"]
+                                  if p.get("act_type") == "prelu"
+                                  else ["data"]),
+             param_defaults={"act_type": "leaky", "slope": 0.25,
+                             "lower_bound": 0.125, "upper_bound": 0.334})
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334):
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data > 0, data, g * data)
+    if act_type == "rrelu":
+        # the reference's deterministic midpoint slope
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, mid * data)
+    raise ValueError("unknown act_type %s" % act_type)
+
+
 # ---------------------------------------------------------------------------
 # Softmax family
 # ---------------------------------------------------------------------------
@@ -70,6 +99,14 @@ def _softmax(data, axis=-1, temperature=None):
     if temperature:
         data = data / temperature
     return torch.softmax(data, dim=axis)
+
+
+@register_op("log_softmax", arg_names=("data",),
+             param_defaults={"axis": -1, "temperature": None})
+def _log_softmax(data, axis=-1, temperature=None):
+    if temperature:
+        data = data / temperature
+    return torch.log_softmax(data, dim=axis)
 
 
 def _softmax_output_prob(data, multi_output, preserve_shape):
@@ -169,3 +206,78 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     y = y * gamma.to(x.dtype).reshape(bshape) \
         + beta.to(x.dtype).reshape(bshape)
     return y.to(data.dtype)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm
+# ---------------------------------------------------------------------------
+
+@register_op("BatchNorm", arg_names=("data", "gamma", "beta"),
+             aux_names=("moving_mean", "moving_var"),
+             mutate_aux=True, takes_train=True,
+             num_outputs=lambda p: 3 if p.get("output_mean_var") else 1,
+             param_defaults={"eps": 1e-3, "momentum": 0.9, "fix_gamma": True,
+                             "use_global_stats": False,
+                             "output_mean_var": False, "axis": 1,
+                             "cudnn_off": False})
+def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                momentum=0.9, fix_gamma=True, use_global_stats=False,
+                output_mean_var=False, axis=1, cudnn_off=False,
+                _train=False):
+    """``(visible outputs..., new_moving_mean, new_moving_var)``: while
+    training (and not ``use_global_stats``) the batch statistics
+    normalize and the moving ones move by ``momentum``; otherwise the
+    moving ones normalize and come back unchanged.  Statistics in at least
+    fp32, the biased variance, as the reference's."""
+    ax = axis % data.dim()
+    dims = tuple(i for i in range(data.dim()) if i != ax)
+    bshape = tuple(data.shape[ax] if i == ax else 1
+                   for i in range(data.dim()))
+    if fix_gamma:
+        gamma = torch.ones_like(gamma).detach()
+    sdt = torch.promote_types(data.dtype, torch.float32)
+    if _train and not use_global_stats:
+        data_s = data.to(sdt)
+        mean = data_s.mean(dim=dims)
+        var = data_s.var(dim=dims, unbiased=False)
+        new_mm = moving_mean * momentum + \
+            mean.detach().to(moving_mean.dtype) * (1 - momentum)
+        new_mv = moving_var * momentum + \
+            var.detach().to(moving_var.dtype) * (1 - momentum)
+    else:
+        mean = moving_mean.to(sdt)
+        var = moving_var.to(sdt)
+        new_mm, new_mv = moving_mean, moving_var
+    inv = torch.rsqrt(var + eps)
+    out = ((data.to(sdt) - mean.reshape(bshape)) * inv.reshape(bshape)
+           * gamma.to(sdt).reshape(bshape)
+           + beta.to(sdt).reshape(bshape)).to(data.dtype)
+    if output_mean_var:
+        return out, mean, inv, new_mm, new_mv
+    return out, new_mm, new_mv
+
+
+alias("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm")
+
+
+# ---------------------------------------------------------------------------
+# Dropout
+# ---------------------------------------------------------------------------
+
+@register_op("Dropout", arg_names=("data",), needs_rng=True,
+             takes_train=True, param_defaults={"p": 0.5, "mode": "training"})
+def _dropout(data, p=0.5, mode="training", _train=False):
+    """Inverted dropout while training (or ``mode="always"``): each
+    element kept with probability ``1 - p`` and scaled by ``1 / (1 -
+    p)``; the identity otherwise.  The mask comes from
+    :func:`mxnet_tpu_torch.random.generator` of the data's device, so
+    ``mx.random.seed`` fixes it; the reference's threefry stream cannot be
+    reproduced, so the two packages agree by distribution."""
+    if (not _train and mode != "always") or p <= 0.0 or \
+            data.device.type == "meta":
+        return data
+    from .. import random as _random
+    keep = 1.0 - p
+    mask = torch.empty_like(data).bernoulli_(
+        keep, generator=_random.generator(data.device))
+    return torch.where(mask.bool(), data / keep, torch.zeros_like(data))

@@ -53,7 +53,8 @@ class OpDef:
         self.mutate_aux = mutate_aux
         # arg names that never receive gradient (labels of loss heads)
         self.backward_ignore = tuple(backward_ignore)
-        # op draws randomness (none of the ported ops does)
+        # op draws randomness (from mxnet_tpu_torch.random's generator of
+        # its device; the reference's op takes a key argument instead)
         self.needs_rng = needs_rng
         # op behaves differently in training: fn takes kwarg ``_train``
         self.takes_train = takes_train

@@ -166,6 +166,16 @@ for _name, _fn in _UNARY.items():
     register_op(_name, arg_names=("data",))(_make_unary(_fn))
 
 
+@register_op("zeros_like", arg_names=("data",))
+def _zeros_like(data):
+    return torch.zeros_like(data)
+
+
+@register_op("where", arg_names=("condition", "x", "y"))
+def _where(condition, x, y):
+    return torch.where(condition.to(torch.bool), x, y)
+
+
 @register_op("clip", arg_names=("data",),
              param_defaults={"a_min": 0.0, "a_max": 1.0})
 def _clip(data, a_min=0.0, a_max=1.0):
@@ -365,6 +375,18 @@ def take_filled(a, idx, axis, rows=False):
     else:
         out = torch.gather(a, axis, safe)
     return torch.where(valid, out, torch.full_like(out, float("nan")))
+
+
+@register_op("pick", arg_names=("data", "index"),
+             param_defaults={"axis": -1, "keepdims": False})
+def _pick(data, index, axis=-1, keepdims=False):
+    """``jnp.take_along_axis`` of one index per row along ``axis``, in the
+    reference's fill mode (:func:`take_filled`: a negative index counts
+    from the end, one past the axis gives NaN)."""
+    axis = axis % data.dim()
+    idx = index.to(torch.int64).unsqueeze(axis)
+    out = take_filled(data, idx, axis)
+    return out if keepdims else out.squeeze(axis)
 
 
 @register_op("take", arg_names=("a", "indices"),

@@ -65,15 +65,16 @@ def test_grad_req_write_replaces_and_add_accumulates(req):
 
 
 def test_torch_grad_buffers_stay_clear():
-    """``.grad`` is MXNet's buffer; torch's own ``.grad`` never fills, so
-    nothing accumulates behind the buffer's back."""
+    """``.grad`` is MXNet's buffer, and the leaf's own torch ``.grad`` is
+    that same buffer (one gradient home); ``backward`` writes it, so
+    nothing accumulates behind the buffer's back over two backwards."""
     x = tmx.nd.array(X, ctx=CPU)
     x.attach_grad()
     for _ in range(2):
         with tmx.autograd.record():
             loss = (x * x).sum()
         loss.backward()
-        assert x.data.grad is None
+        assert x.data.grad is x.grad.data
     _close(x.grad, jmx.nd.array(2 * X))
 
 

@@ -77,7 +77,9 @@ def test_v2_writer_round_trips_through_jax_reader(tmp_path):
 
 def test_load_jax_params_matches_jax_loader():
     """Prefixed names from the JAX net's collect_params() and un-prefixed
-    names from the .params file land on the same tensors."""
+    names from the .params file land on the same tensors.  Each package
+    numbers its GPTLMs per process (``gptlm0_``, ``gptlm1_``, ...), so the
+    two nets' names are matched without the model prefix."""
     jarrays = _jax_arrays(_jax_net())
     assert all(k.startswith("gptlm") for k in jarrays)
     from_jax = tgpt.load_jax_params(tgpt.gpt2_tiny(), jarrays, device="cpu")
@@ -85,12 +87,12 @@ def test_load_jax_params_matches_jax_loader():
     ours = from_jax.collect_params()
     assert [k.split("_", 1)[1] for k in ours] == \
         [k.split("_", 1)[1] for k in jarrays]
-    for (name, p), q in zip(ours.items(),
-                            from_file.collect_params().values()):
-        want = jarrays[name]
+    for p, q, want in zip(ours.values(),
+                          from_file.collect_params().values(),
+                          jarrays.values()):
         assert tuple(p.shape) == want.shape
-        np.testing.assert_array_equal(p.detach().numpy(), want)
-        np.testing.assert_array_equal(q.detach().numpy(), want)
+        np.testing.assert_array_equal(p.data().asnumpy(), want)
+        np.testing.assert_array_equal(q.data().asnumpy(), want)
 
 
 @pytest.mark.parametrize("edit", ["missing", "extra", "shape", "twice"])
@@ -257,7 +259,7 @@ def test_layers_match_gluon_names_and_math(kind):
         p.set_data(mx.nd.array(arrays[k]))
     with torch.no_grad():
         for k, p in ours.collect_params().items():
-            p.copy_(torch.from_numpy(arrays[k]))
+            p.set_data(torch.from_numpy(arrays[k]))
         x = rng.randn(2, 4, 8 if kind == "attention" else 3) \
             .astype(np.float32)
         got_y = ours(torch.from_numpy(x)).numpy()

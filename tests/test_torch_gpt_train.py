@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd, initializer
 from mxnet_tpu_torch import optimizer as topt
 from mxnet_tpu_torch.base import MXNetError
@@ -131,7 +132,7 @@ def _port_step_grads(net, x, y, segs=None):
                   None if segs is None else torch.from_numpy(segs))
         loss = loss_fn(out, torch.from_numpy(y)).mean()
     loss.backward()
-    return loss.item(), {n.split("_", 1)[1]: p.grad.numpy().copy()
+    return loss.item(), {n.split("_", 1)[1]: p.grad().asnumpy()
                          for n, p in net.collect_params().items()}
 
 
@@ -255,16 +256,19 @@ def test_trainer_steps_match_jax(name, jax_trainer_runs):
         for n, p in zip(_port_names(net), net.collect_params().values()):
             keep = _compared(name, n, want[n].shape)
             np.testing.assert_allclose(
-                p.detach().numpy()[keep], want[n][keep], rtol=0,
+                p.data().asnumpy()[keep], want[n][keep], rtol=0,
                 atol=PARAM_TOL[name], err_msg="%s step %d %s"
                 % (name, step, n))
 
 
 def test_step_uses_only_its_own_gradient():
     """MXNet's grad_req="write": each backward overwrites the gradient.
-    torch accumulates, so the Trainer clears every gradient after its
-    update: step 2's update is exactly -lr * grad(batch 2 at the step-1
-    weights), not that plus batch 1's gradient."""
+    torch's backward adds into ``.grad``, so a raw-tensor forward reads
+    every "write" parameter through ``write_grads``, whose backward writes:
+    step 2's update is exactly -lr * grad(batch 2 at the step-1 weights),
+    not that plus batch 1's gradient.  As in the reference, the Trainer
+    clears nothing: after a step ``p.grad()`` holds the last backward's
+    gradient, and a step with no backward since applies it again."""
     (x1, y1), (x2, y2) = _batches(2, seed=2)
     lr = 0.5
     net = _port_net()
@@ -275,29 +279,42 @@ def test_step_uses_only_its_own_gradient():
         with autograd.record():
             loss_fn(net(torch.from_numpy(x)),
                     torch.from_numpy(y)).mean().backward()
+
+    def values(n):
+        return [p.data().data.detach().clone()
+                for p in n.collect_params().values()]
+
+    def twin_grads(weights, x, y):
+        twin = _port_net()
+        for p, w in zip(twin.collect_params().values(), weights):
+            p.set_data(w)
+        return _port_step_grads(twin, x, y)[1]
+
+    _, first = _port_step_grads(_port_net(), x1, y1)
     backward(x1, y1)
     trainer.step(1)
-    assert all(p.grad is None for p in net.collect_params().values())
-    before = [p.detach().clone() for p in net.collect_params().values()]
-    twin = _port_net()
-    with torch.no_grad():
-        for p, b in zip(twin.collect_params().values(), before):
-            p.copy_(b)
-    _, fresh = _port_step_grads(twin, x2, y2)
+    for n, p in zip(_port_names(net), net.collect_params().values()):
+        np.testing.assert_array_equal(p.grad().asnumpy(), first[n],
+                                      err_msg=n)
+    before = values(net)
+    fresh = twin_grads(before, x2, y2)
     backward(x2, y2)
     trainer.step(1)
     for n, p, b in zip(_port_names(net), net.collect_params().values(),
                        before):
-        np.testing.assert_array_equal(p.detach().numpy(),
+        np.testing.assert_array_equal(p.grad().asnumpy(), fresh[n],
+                                      err_msg=n)
+        np.testing.assert_array_equal(p.data().asnumpy(),
                                       (b - lr * torch.from_numpy(fresh[n]))
                                       .numpy(), err_msg=n)
-    # a step with no backward since the last one: stale gradients
-    with pytest.raises(RuntimeError):
-        trainer.step(1)
-    frozen = [p.detach().clone() for p in net.collect_params().values()]
-    trainer.step(1, ignore_stale_grad=True)
-    for p, f in zip(net.collect_params().values(), frozen):
-        assert torch.equal(p.detach(), f)
+    # a step with no backward since the last one reuses the gradient
+    after = values(net)
+    trainer.step(1)
+    for n, p, a in zip(_port_names(net), net.collect_params().values(),
+                       after):
+        np.testing.assert_array_equal(p.data().asnumpy(),
+                                      (a - lr * torch.from_numpy(fresh[n]))
+                                      .numpy(), err_msg=n)
 
 
 def test_trainer_arguments():
@@ -314,10 +331,11 @@ def test_trainer_arguments():
     params = list(net.collect_params().values())
     trainer = Trainer(params, "sgd", {"learning_rate": 1.0})
     for p in params:
-        p.grad = torch.ones_like(p)
-    before = params[0].detach().clone()
+        p.grad()[:] = 1.0
+    before = params[0].data().data.detach().clone()
     trainer.step(2)
-    torch.testing.assert_close(params[0].detach(), before - 0.5)
+    torch.testing.assert_close(params[0].data().data.detach(),
+                               before - 0.5)
 
 
 def test_optimizer_multipliers_resolve_as_jax():
@@ -349,16 +367,18 @@ def test_remat_matches_plain_forward_and_grads():
                            remat=r) for r in (False, True)]
         nets[0].initialize(initializer.Xavier(), device="cpu",
                            generator=torch.Generator().manual_seed(3))
+        # torch's state_dict sees the registered leaves
+        nets[1].initialize(device="cpu")
         nets[1].load_state_dict(nets[0].state_dict())
         toks = torch.from_numpy(
             np.random.RandomState(3).randint(0, 32, (2, 16)))
         results = []
         for net in nets:
-            torch.manual_seed(5)
+            tmx.random.seed(5)              # dropout draws from it
             with autograd.record():
                 loss = torch.log_softmax(net(toks), -1)[..., 0].mean()
             loss.backward()
-            results.append((loss.item(), [p.grad.clone() for p in
+            results.append((loss.item(), [p.grad().data.clone() for p in
                                           net.collect_params().values()]))
         assert results[0][0] == pytest.approx(results[1][0], rel=1e-6)
         for a, b in zip(results[0][1], results[1][1]):
@@ -399,7 +419,7 @@ def test_saved_params_load_into_jax_net(tmp_path):
     back = tgpt.gpt2_tiny().load_params(path, device="cpu")
     for p, q in zip(back.collect_params().values(),
                     net.collect_params().values()):
-        assert torch.equal(p, q.detach())
+        assert torch.equal(p.data().data, q.data().data)
 
 
 # -- initialization, losses, scopes ---------------------------------------------------
@@ -408,7 +428,7 @@ def test_initialize_defaults_to_the_card():
     net = tgpt.gpt2_tiny()
     if torch.cuda.is_available():
         net.initialize()
-        assert net.wte.device.type == "cuda"
+        assert net.wte.data().data.device.type == "cuda"
     else:
         with pytest.raises(MXNetError):
             net.initialize()
@@ -422,12 +442,13 @@ def test_loading_weights_defaults_to_the_card(load):
     def go(net, **kw):
         if load == "file":
             return net.load_params(FIXTURE, **kw)
-        arrays = {n: p.detach().numpy()
+        arrays = {n: p.data().asnumpy()
                   for n, p in _port_net().collect_params().items()}
         return tgpt.load_jax_params(net, arrays, **kw)
-    assert go(tgpt.gpt2_tiny(), device="cpu").wte.device.type == "cpu"
+    assert go(tgpt.gpt2_tiny(), device="cpu").wte.data().data.device.type \
+        == "cpu"
     if torch.cuda.is_available():
-        assert go(tgpt.gpt2_tiny()).wte.device.type == "cuda"
+        assert go(tgpt.gpt2_tiny()).wte.data().data.device.type == "cuda"
     else:
         with pytest.raises(MXNetError):
             go(tgpt.gpt2_tiny())
@@ -447,7 +468,7 @@ def test_initialize_by_name_dispatch_and_distribution():
     jparams = {n.split("_", 1)[1]: p.data().asnumpy()
                for n, p in jnet.collect_params().items()}
     for n, p in zip(_port_names(net), net.collect_params().values()):
-        a = p.detach().numpy()
+        a = p.data().asnumpy()
         if n.endswith(("_bias", "_beta")):
             assert not a.any(), n
         elif n.endswith("_gamma"):
@@ -461,7 +482,7 @@ def test_initialize_by_name_dispatch_and_distribution():
     again = tgpt.gpt2_tiny()
     again.initialize(initializer.Xavier(), device="cpu",
                      generator=torch.Generator().manual_seed(0))
-    assert torch.equal(again.wte, net.wte)
+    assert torch.equal(again.wte.data().data, net.wte.data().data)
 
 
 @pytest.mark.parametrize("init,check", [
@@ -478,8 +499,8 @@ def test_initializers(init, check):
     layer = nn.Dense(64, in_units=48, prefix="fc_")
     layer.initialize(init, device="cpu",
                      generator=torch.Generator().manual_seed(1))
-    assert check(layer.weight.detach().numpy())
-    assert not layer.bias.detach().any()
+    assert check(layer.weight.data().asnumpy())
+    assert not layer.bias.data().asnumpy().any()
 
 
 def test_initializer_rejects_unknown_names():

@@ -242,8 +242,8 @@ def test_fold_evaluates_param_free_subgraph():
 
 def _register_test_ops():
     """Two parameter-free test ops: one that draws random numbers and one
-    that behaves differently in training (the reference's ``_random_*`` and
-    ``Dropout``, which the port has not yet)."""
+    that behaves differently in training (as the reference's ``_random_*``
+    and ``Dropout`` do)."""
     from mxnet_tpu_torch.ops.registry import _OP_REGISTRY, register_op
     if "_test_rng_source" not in _OP_REGISTRY:
         register_op("_test_rng_source", arg_names=(), needs_rng=True,
@@ -268,9 +268,12 @@ def test_fold_skips_rng_and_train_dependent_ops():
     # the arange under the train-dependent op folds; nothing after it does
     assert report["rewrites"].get("constants", 0) == 1
     assert "_arange" not in ops and "_plus_scalar" in ops
-    # and the executor refuses to run a random op it cannot draw for
-    with pipeline_env("off"), pytest.raises(mx.MXNetError):
-        out.simple_bind(mx.cpu(), grad_req="null").forward()
+    # and the executor runs the random op (it draws from the device's
+    # generator, mx.random): zeros + arange + 1 in inference
+    with pipeline_env("off"):
+        got = out.simple_bind(mx.cpu(), grad_req="null").forward()[0]
+    np.testing.assert_array_equal(
+        got.asnumpy(), np.arange(9, dtype=np.float32).reshape(3, 3) + 1)
 
 
 @pytest.mark.parametrize("cap,folds", [(8, False), (256, True)])

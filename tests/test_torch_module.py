@@ -276,6 +276,7 @@ def _gluon_run(opt, steps, fused, mults=None, change_at=None):
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.gluon import Trainer, nn
     torch.manual_seed(0)
+    tmx.random.seed(0)          # the initializers draw from mx.random
     tag = "gl_%s_%s_" % (opt, fused)
     l1 = nn.Dense(16, in_units=8, activation="relu", prefix=tag + "a_")
     l2 = nn.Dense(1, in_units=16, prefix=tag + "b_")
@@ -298,7 +299,8 @@ def _gluon_run(opt, steps, fused, mults=None, change_at=None):
             loss = ((l2(l1(x)) - y) ** 2).mean()
         loss.backward()
         trainer.step(batch_size=64)
-    return [p.detach().clone() for p in params.values()], trainer
+    return [p.data().data.detach().clone() for p in params.values()], \
+        trainer
 
 
 def test_trainer_fused_rebuild_preserves_state():

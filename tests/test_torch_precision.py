@@ -170,6 +170,7 @@ def _gluon(policy, scale_loss, steps, nan_at=None):
     from mxnet_tpu_torch import autograd
     from mxnet_tpu_torch.gluon import Trainer, nn
     torch.manual_seed(3)
+    tmx.random.seed(3)          # the initializers draw from mx.random
     l1 = nn.Dense(16, in_units=8, activation="relu", prefix="prec_a_")
     l2 = nn.Dense(1, in_units=16, prefix="prec_b_")
     params = dict(l1.collect_params())
@@ -191,7 +192,8 @@ def _gluon(policy, scale_loss, steps, nan_at=None):
                 loss = policy.loss_scaler.scale_loss(loss)
         loss.backward()
         trainer.step(batch_size=64)
-    return [p.detach().clone() for p in params.values()], trainer
+    return [p.data().data.detach().clone() for p in params.values()], \
+        trainer
 
 
 def test_trainer_loss_scaling_identity_and_rekey():
