@@ -7516,6 +7516,518 @@ def operators_phase(dev, card):
     return out
 
 
+#: the data-parallel cell: two dist_sync workers under tools/launch.py -n 2
+#: sharing card 0 over gloo (NCCL refuses two ranks on one card).  ResNet-50
+#: at train_imagenet.py's defaults (batch 128 a worker, SGD 0.1 / 0.9 / wd
+#: 1e-4, fp32 with TF32 off), each rank its own seeded batches; the same
+#: with 2-bit compression (--gc-type 2bit --gc-threshold 0.5); gpt2_small
+#: by the Gluon Trainer (B 8 x T 1024 a worker, Adam 3e-4); then
+#: tools/bandwidth/measure.py's measure_kvstore("dist_sync", 64 MB, 10
+#: arrays) over the two gloo workers and over NCCL at world size 1
+DP = dict(device="cuda:0", layers=RESNET_LAYERS, shape=RESNET_SHAPE,
+          classes=RESNET_CLASSES, batch=RESNET_B, batches=8, replay=3,
+          gc_steps=3, gc_threshold=0.5, lr=0.1, momentum=0.9, wd=1e-4,
+          profile_steps=2, gpt_steps=3, gpt=True, gpt_b=TRAIN_B,
+          gpt_t=TRAIN_T, vocab=VOCAB, bw_mb=64.0, bw_arrays=10,
+          bw_iters=10, bw_warmup=2, timeout=600, seed=0)
+#: the same phase on the host at a small size (a rehearsal: tools/launch.py
+#: --cpu-fake-devices, gloo on CPU tensors)
+DP_CPU = dict(device="cpu", layers=8, shape="3,28,28", classes=10, batch=8,
+              batches=3, replay=2, gc_steps=2, profile_steps=0, gpt_steps=2,
+              gpt_net=dict(layers=2, units=32, heads=2, vocab=64, seq=16),
+              gpt_b=2, gpt_t=16, vocab=64, bw_mb=0.4, bw_arrays=4,
+              bw_iters=2, bw_warmup=1, timeout=300)
+#: the ResNet workers against the in-process replay (one process, both
+#: ranks' batches through one batch-128 Module, gradients summed,
+#: rescale_grad 1 / 256, one SGD update a step), as max |w - w_replay| of
+#: max |w_replay| over every parameter, after each of the first steps
+DP_REPLAY_TOL = 1e-5
+DP_SCRIPT = """import json, sys
+sys.path.insert(0, %(repo)r)
+import chip_smoke
+chip_smoke.dp_worker(json.loads(%(cfg)r), %(mode)r)
+"""
+DP_MARK = "dp_worker: exit "
+
+
+def dp_resnet(mx, cfg):
+    """``(symbol, data shape, init args, init aux)``: symbols/resnet.py's
+    ResNet with train_imagenet.py's Xavier (gaussian, in, 2) drawn with
+    numpy from ``cfg["seed"]``, BatchNorm gamma 1, moving variance 1."""
+    shape = (cfg["batch"],) + tuple(int(x) for x in cfg["shape"].split(","))
+    sym = resnet_symbol(mx, cfg["classes"], cfg["layers"], cfg["shape"])
+    arg_shapes, _, aux_shapes = sym.infer_shape(
+        data=shape, softmax_label=(cfg["batch"],))
+    shapes = {n: s for n, s in zip(sym.list_arguments(), arg_shapes)
+              if n not in ("data", "softmax_label")}
+    args = xavier_params(shapes, cfg["seed"])
+    for n in args:
+        if n.endswith("_gamma"):
+            args[n][:] = 1.0
+    aux = {n: (np.ones if n.endswith("_var") else np.zeros)(s, np.float32)
+           for n, s in zip(sym.list_auxiliary_states(), aux_shapes)}
+    return sym, shape, args, aux
+
+
+def dp_batch(mx, cfg, shape, rank, step, dev):
+    """Rank ``rank``'s batch ``step``: pixels normal(0, 1) and labels drawn
+    on ``dev`` from the seed ``1000 rank + step`` (any process can draw any
+    rank's batch)."""
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    g = torch.Generator(device=dev).manual_seed(1000 * rank + step)
+    data = torch.randn(shape, generator=g, device=dev)
+    label = torch.randint(0, cfg["classes"], (shape[0],), generator=g,
+                          device=dev).float()
+    return mx.io.DataBatch(
+        data=[NDArray(data, dev)], label=[NDArray(label, dev)], pad=0,
+        provide_data=[mx.io.DataDesc("data", shape)],
+        provide_label=[mx.io.DataDesc("softmax_label", (shape[0],))])
+
+
+def dp_iter(mx, cfg, shape, rank, n, dev):
+    batches = [dp_batch(mx, cfg, shape, rank, s, dev) for s in range(n)]
+
+    class RankIter(mx.io.DataIter):
+        def __init__(self):
+            super().__init__(shape[0])
+            self.i = 0
+            self.provide_data = batches[0].provide_data
+            self.provide_label = batches[0].provide_label
+
+        def next(self):
+            if self.i >= len(batches):
+                raise StopIteration
+            self.i += 1
+            return batches[self.i - 1]
+
+        def reset(self):
+            self.i = 0
+
+    return RankIter()
+
+
+def digest(tensors):
+    """A bitwise digest a tensor (computed on its device): the sum of its
+    32-bit words weighted by their position mod 65521, plus one."""
+    out = []
+    for t in tensors:
+        w = t.detach().contiguous().reshape(-1).view(torch.int32).long()
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append(int((w * pos).sum()))
+    return out
+
+
+def dp_fit(mx, cfg, sym, shape, args, aux, rank, dev, n, kv, keep=0,
+           profile_steps=0):
+    """``Module.fit`` of ResNet on this rank's ``n`` batches through ``kv``:
+    the step times, a digest of the weights and the store's optimizer state
+    after each step, copies of the weights after the first ``keep`` steps,
+    then ``profile_steps`` more fit steps under torch.profiler."""
+    mod = mx.mod.Module(sym, context=mx.Context(dev))
+    steps, digests, kept = [], [], []
+    fit_step = mod.fit_step
+
+    def timed(batch):
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        t = time.perf_counter()
+        fit_step(batch)
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        steps.append(time.perf_counter() - t)
+
+    def after(param):
+        ws = [mod._exec.arg_dict[k].data for k in mod._param_names]
+        st = kv._updater.states
+        moms = [st[k] for k in sorted(st, key=str) if st[k] is not None]
+        digests.append(digest(ws + moms))
+        if len(kept) < keep:
+            kept.append({k: mod._exec.arg_dict[k].data.clone()
+                         for k in mod._param_names})
+
+    mod.fit_step = timed
+    train = dp_iter(mx, cfg, shape, rank, n, dev)
+    wrap = lambda a: mx.nd.array(a, ctx=mx.Context(dev))  # noqa: E731
+    kv.stats.update(allreduce_calls=0, wire_bytes=0, allreduce_s=0.0)
+    mod.fit(train, num_epoch=1, kvstore=kv, optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"], "wd": cfg["wd"],
+                              "momentum": cfg["momentum"]},
+            arg_params={k: wrap(v) for k, v in args.items()},
+            aux_params={k: wrap(v) for k, v in aux.items()},
+            batch_end_callback=[after])
+    stats = dict(kv.stats)
+    out = {"step_ms": [x * 1e3 for x in steps], "digests": digests,
+           "allreduce_ms_per_step": stats["allreduce_s"] * 1e3 / n,
+           "wire_bytes_per_step": stats["wire_bytes"] / n,
+           "allreduce_calls": stats["allreduce_calls"],
+           "rescale_grad": mod._optimizer.rescale_grad,
+           "update_on_kvstore": bool(mod._update_on_kvstore)}
+    import hashlib
+    h = hashlib.sha256()
+    for k in mod._param_names:
+        h.update(mod._exec.arg_dict[k].data.detach().cpu().numpy()
+                 .tobytes())
+    out["final_sha256"] = h.hexdigest()
+    if profile_steps and dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        batch = dp_batch(mx, cfg, shape, rank, n, dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(profile_steps):
+                fit_step(batch)
+            torch.cuda.synchronize(dev)
+            wall_us = (time.perf_counter() - t) * 1e6
+        out["profile"] = profile_summary(
+            prof, wall_us, profile_steps,
+            "dp profile rank %d: dist_sync fit step" % rank)
+        out["profile"].pop("top")
+    return mod, out, kept
+
+
+def dp_replay(mx, cfg, sym, shape, args, aux, dev, steps, threshold=None):
+    """The in-process replay: one batch-``B`` Module, rank 0's and rank 1's
+    batch of each step through ``forward_backward``, their gradients (each
+    through its own plain ``TwoBitCompression`` with residuals, when a
+    threshold is given) summed, ``rescale_grad`` 1 / 2B, one SGD update.
+    Returns the weights after each step."""
+    from mxnet_tpu_torch.gradient_compression import TwoBitCompression
+    mod = mx.mod.Module(sym, context=mx.Context(dev))
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (shape[0],))])
+    wrap = lambda a: mx.nd.array(a, ctx=mx.Context(dev))  # noqa: E731
+    mod.init_params(arg_params={k: wrap(v) for k, v in args.items()},
+                    aux_params={k: wrap(v) for k, v in aux.items()})
+    mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params={
+        "learning_rate": cfg["lr"], "wd": cfg["wd"],
+        "momentum": cfg["momentum"], "rescale_grad": 1.0 / (2 * shape[0])})
+    comps = [TwoBitCompression(threshold) for _ in range(2)] \
+        if threshold is not None else None
+    names = mod._param_names
+    out = []
+    for step in range(steps):
+        total = None
+        for r in range(2):
+            mod.forward_backward(dp_batch(mx, cfg, shape, r, step, dev))
+            g = {n: mod._exec.grad_dict[n].data.clone() for n in names}
+            if comps is not None:
+                g = {n: comps[r].quantize_local(n, v) for n, v in g.items()}
+            total = g if total is None else \
+                {n: total[n] + g[n] for n in names}
+        for n in names:
+            mod._exec.grad_dict[n]._set_data(total[n])
+        mod.update()
+        out.append({n: mod._exec.arg_dict[n].data.clone() for n in names})
+    del mod
+    return out
+
+
+def replay_errs(kept, replay):
+    """max |w - w_replay| / max |w_replay| over every parameter, a step."""
+    errs = []
+    for got, want in zip(kept, replay):
+        num = max(float((got[n] - want[n]).abs().max()) for n in want)
+        den = max(float(want[n].abs().max()) for n in want)
+        errs.append(num / den)
+    return errs
+
+
+def dp_bandwidth(mx, cfg, dev):
+    """``measure_kvstore("dist_sync", size_mb, num_arrays)`` of
+    tools/bandwidth/measure.py on the port: the best push + pull round
+    trip of every key of one batch, and the store's all-reduce alone."""
+    kv = mx.kv.create("dist_sync")
+    ctx = mx.Context(dev)
+    per = max(1, int(cfg["bw_mb"] * 1e6 / cfg["bw_arrays"] / 4))
+    keys = [str(i) for i in range(cfg["bw_arrays"])]
+    vals = [mx.nd.ones((per,), ctx=ctx) for _ in keys]
+    outs = [mx.nd.zeros((per,), ctx=ctx) for _ in keys]
+    for k, v in zip(keys, vals):
+        kv.init(k, v)
+    total = 4 * per * len(keys)
+    times, ar = [], []
+    for i in range(cfg["bw_warmup"] + cfg["bw_iters"]):
+        s0 = kv.stats["allreduce_s"]
+        t0 = time.perf_counter()
+        kv.push(keys, [[v] for v in vals])
+        kv.pull(keys, [[o] for o in outs])
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if i >= cfg["bw_warmup"]:
+            times.append(time.perf_counter() - t0)
+            ar.append(kv.stats["allreduce_s"] - s0)
+    want = float(kv.num_workers)
+    check(all(bool((o.data == want).all()) for o in outs),
+          "dp bandwidth: the pulled sums are not %g" % want)
+    from mxnet_tpu_torch.base import dist_backend
+    t = min(times)
+    return {"workers": kv.num_workers, "backend": dist_backend(),
+            "num_keys": len(keys), "total_mb": total / 1e6, "time_s": t,
+            "GBps": total / t / 1e9,
+            "per_key_GBps": total / len(keys) / t / 1e9,
+            "allreduce_GBps": total / min(ar) / 1e9}
+
+
+def dp_worker(cfg, mode):
+    """One rank of the data-parallel phase (``mode`` "dist": the two gloo
+    workers; "nccl": bandwidth at world size 1).  Prints one exit line."""
+    import mxnet_tpu_torch as mx
+    dev = torch.device(cfg["device"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the replay holds bitwise determinism of the gradients
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    doc = {"mode": mode}
+    if mode == "nccl":
+        doc["bw"] = dp_bandwidth(mx, cfg, dev)
+        doc["rank"] = 0
+        sys.stderr.write(DP_MARK + json.dumps(doc) + "\n")
+        return
+    sym, shape, args, aux = dp_resnet(mx, cfg)
+    kv = mx.kv.create("dist_sync")
+    rank = kv.rank
+    doc["rank"], doc["num_workers"] = rank, kv.num_workers
+    mod, doc["resnet"], kept = dp_fit(
+        mx, cfg, sym, shape, args, aux, rank, dev, cfg["batches"], kv,
+        keep=cfg["replay"] if rank == 0 else 0,
+        profile_steps=cfg["profile_steps"])
+    del mod
+    kv2 = mx.kv.create("dist_sync")
+    kv2.set_gradient_compression({"type": "2bit",
+                                  "threshold": cfg["gc_threshold"]})
+    mod, doc["gc"], kept_gc = dp_fit(
+        mx, cfg, sym, shape, args, aux, rank, dev, cfg["gc_steps"], kv2,
+        keep=cfg["gc_steps"] if rank == 0 else 0)
+    del mod
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    if rank == 0:
+        t = time.perf_counter()
+        doc["resnet"]["replay_errs"] = replay_errs(kept, dp_replay(
+            mx, cfg, sym, shape, args, aux, dev, cfg["replay"]))
+        doc["gc"]["replay_errs"] = replay_errs(kept_gc, dp_replay(
+            mx, cfg, sym, shape, args, aux, dev, cfg["gc_steps"],
+            cfg["gc_threshold"]))
+        doc["replay_s"] = time.perf_counter() - t
+    del kept, kept_gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    kv.barrier()
+    if cfg["gpt"]:
+        doc["gpt"] = dp_gpt(mx, cfg, rank, dev)
+    doc["bw"] = dp_bandwidth(mx, cfg, dev)
+    sys.stderr.write(DP_MARK + json.dumps(doc) + "\n")
+    sys.stderr.flush()
+
+
+def dp_gpt(mx, cfg, rank, dev):
+    """gpt2_small (or ``cfg["gpt_net"]``'s widths) by the Gluon Trainer with
+    ``kvstore="dist_sync"``: this rank's batch, Adam 3e-4, a digest of the
+    parameters after each step, and the flash launches."""
+    from mxnet_tpu_torch.gluon import loss as gloss
+    if "gpt_net" in cfg:
+        net = seeded_gpt(mx, dict(cfg["gpt_net"], seed=0), dev)
+    else:
+        net = seeded_gpt2_small(0, dev)
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": TRAIN_LR},
+                               kvstore="dist_sync")
+    loss_fn = gloss.SoftmaxCrossEntropyLoss(axis=-1, sparse_label=True)
+    toks = np.random.default_rng(10 + rank).integers(
+        0, cfg["vocab"], (cfg["gpt_b"], cfg["gpt_t"] + 1))
+    batch = (torch.from_numpy(toks[:, :-1]).long().to(dev),
+             torch.from_numpy(toks[:, 1:].astype(np.float32)).to(dev), None)
+    flash_counts(reset=True)
+    losses, digests, steps = [], [], []
+    for _ in range(cfg["gpt_steps"]):
+        t = time.perf_counter()
+        losses.append(train_step(net, trainer, loss_fn, batch))
+        steps.append(time.perf_counter() - t)
+        digests.append(digest([p.data().data
+                               for p in net.collect_params().values()]))
+    return {"losses": losses, "digests": digests, "flash":
+            list(flash_counts()), "layers": len(net.blocks),
+            "step_ms": [x * 1e3 for x in steps],
+            "update_on_kvstore": bool(trainer._update_on_kvstore),
+            "wire_bytes_per_step": trainer._kv.stats["wire_bytes"] /
+            cfg["gpt_steps"],
+            "allreduce_ms_per_step": trainer._kv.stats["allreduce_s"] *
+            1e3 / cfg["gpt_steps"]}
+
+
+def dp_launch(cfg, mode, n, work, env_extra):
+    """``tools/launch.py -n n --launcher local`` of :func:`dp_worker` under
+    ``timeout``; returns the workers' exit documents.  A worker that fails
+    fails the phase."""
+    script = os.path.join(work, "dp_worker.py")
+    with open(script, "w") as f:
+        f.write(DP_SCRIPT % {"repo": REPO, "cfg": json.dumps(cfg),
+                             "mode": mode})
+    env_ = dict(os.environ)
+    env_.update(env_extra)
+    env_["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    for k in ("MXTPU_COORDINATOR", "MXTPU_FAULT"):
+        env_.pop(k, None)
+    log_path = os.path.join(work, "dp-%s.log" % mode)
+    cmd = ["timeout", "-k", "10", str(cfg["timeout"]), sys.executable,
+           LAUNCH, "-n", str(n), "--launcher", "local", "--aot-cache-dir",
+           "off"] + (["--cpu-fake-devices"] if cfg["device"] == "cpu"
+                     else []) + ["--", sys.executable, script]
+    t = time.perf_counter()
+    with open(log_path, "w") as log:
+        rc = subprocess.call(cmd, env=env_, stdout=log,
+                             stderr=subprocess.STDOUT)
+    took = time.perf_counter() - t
+    docs = sorted(marked_lines(log_path, DP_MARK), key=lambda d: d["rank"])
+    if rc != 0 or len(docs) != n:
+        with open(log_path, errors="replace") as f:
+            sys.stderr.write(f.read()[-6000:])
+    check(rc == 0, "dp %s: the launcher exited %d" % (mode, rc))
+    check(len(docs) == n, "dp %s: %d exit lines of %d workers"
+          % (mode, len(docs), n))
+    return docs, took
+
+
+def dp_phase(dev, card, cfg=None, workdir=None):
+    """The data-parallel phase: two :func:`dp_worker` processes under the
+    unchanged ``tools/launch.py -n 2 --launcher local`` on card 0 with
+    ``MXTPU_DIST_BACKEND=gloo`` (ResNet-50 by ``Module.fit`` with
+    ``kv.create("dist_sync")``, the same with 2-bit compression, gpt2_small
+    by the Gluon Trainer, the kvstore bandwidth), then one NCCL worker at
+    world size 1 (the bandwidth).  Holds the workers bitwise equal at every
+    step, rank 0's replays within ``DP_REPLAY_TOL``, 16 times fewer bytes
+    compressed, and B1-B3 at one launch a layer a step in each worker."""
+    cfg = dict(DP, **(cfg or {}))
+    on_card = dev.type == "cuda"
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="dp-", dir=workdir)
+    t0 = time.perf_counter()
+    docs, took = dp_launch(cfg, "dist", 2, work,
+                           {"MXTPU_DIST_BACKEND": "gloo",
+                            "MXTPU_FLASH_BWD": "split"})
+    nccl, took_nccl = dp_launch(cfg, "nccl", 1, work,
+                                {"MXTPU_DIST_BACKEND": "" if on_card
+                                 else "gloo"})
+    shutil.rmtree(work, ignore_errors=True)
+    r0, r1 = docs
+    out = {"launch_s": took, "nccl_launch_s": took_nccl}
+    check(r0["num_workers"] == r1["num_workers"] == 2,
+          "dp: the workers saw %r workers" % [d["num_workers"] for d in docs])
+    for part, n in (("resnet", cfg["batches"]), ("gc", cfg["gc_steps"])):
+        a, b = r0[part], r1[part]
+        check(len(a["digests"]) == len(b["digests"]) == n,
+              "dp %s: %d/%d digests of %d steps"
+              % (part, len(a["digests"]), len(b["digests"]), n))
+        equal = [x == y for x, y in zip(a["digests"], b["digests"])]
+        check(all(equal) and a["final_sha256"] == b["final_sha256"],
+              "dp %s: the workers differ at steps %r"
+              % (part, [i for i, e in enumerate(equal) if not e]))
+        check(a["update_on_kvstore"] and b["update_on_kvstore"],
+              "dp %s: fit did not update on the dist store" % part)
+        check(abs(a["rescale_grad"] - 1.0 / (2 * cfg["batch"])) < 1e-12,
+              "dp %s: rescale_grad %r" % (part, a["rescale_grad"]))
+        errs = a["replay_errs"]
+        check(len(errs) >= 1 and max(errs) <= DP_REPLAY_TOL,
+              "dp %s: workers vs the in-process replay %r (limit %g)"
+              % (part, errs, DP_REPLAY_TOL))
+        p50 = [statistics.median(d[part]["step_ms"][1:] or
+                                 d[part]["step_ms"]) for d in docs]
+        out[part] = {
+            "steps": n, "bitwise_equal_steps": sum(equal),
+            "replay_errs": errs, "fit_step_p50_ms": p50,
+            "images_per_s_pair": 2 * cfg["batch"] / (max(p50) / 1e3),
+            "allreduce_ms_per_step": [d[part]["allreduce_ms_per_step"]
+                                      for d in docs],
+            "wire_bytes_per_step": a["wire_bytes_per_step"],
+            "step_ms": [d[part]["step_ms"] for d in docs]}
+        if "profile" in a:
+            out[part]["device_busy_share"] = [
+                d[part]["profile"]["device_busy_share"] for d in docs]
+    ratio = out["resnet"]["wire_bytes_per_step"] / \
+        out["gc"]["wire_bytes_per_step"]
+    out["gc"]["wire_ratio"] = ratio
+    check(ratio > 15.9, "dp gc: the compressed wire is only %.3f times "
+          "smaller" % ratio)
+    print("dp resnet [%s]: %d x %d x %s ResNet-%d by Module.fit with "
+          "kv.create('dist_sync'), 2 workers on one card over gloo: fit "
+          "step p50 %s ms, %.1f images/s of the pair, kv.allreduce %s ms "
+          "and %.1f MB a step a worker, device busy %s; bitwise equal at "
+          "%d of %d steps; replay err %s (limit %g)"
+          % (card, 2, cfg["batch"], cfg["shape"], cfg["layers"],
+             ["%.1f" % x for x in out["resnet"]["fit_step_p50_ms"]],
+             out["resnet"]["images_per_s_pair"],
+             ["%.1f" % x for x in out["resnet"]["allreduce_ms_per_step"]],
+             out["resnet"]["wire_bytes_per_step"] / 1e6,
+             ["%.3f" % x for x in out["resnet"].get("device_busy_share",
+                                                    [])],
+             out["resnet"]["bitwise_equal_steps"], cfg["batches"],
+             ["%.3g" % x for x in out["resnet"]["replay_errs"]],
+             DP_REPLAY_TOL))
+    print("dp gc [%s]: 2-bit threshold %g, %d steps: fit step p50 %s ms, "
+          "%.3f MB a step on the wire a worker (%.2f times fewer than "
+          "fp32); bitwise equal at %d of %d steps; replay err %s (limit %g)"
+          % (card, cfg["gc_threshold"], cfg["gc_steps"],
+             ["%.1f" % x for x in out["gc"]["fit_step_p50_ms"]],
+             out["gc"]["wire_bytes_per_step"] / 1e6, ratio,
+             out["gc"]["bitwise_equal_steps"], cfg["gc_steps"],
+             ["%.3g" % x for x in out["gc"]["replay_errs"]], DP_REPLAY_TOL))
+    if cfg["gpt"]:
+        a, b = r0["gpt"], r1["gpt"]
+        equal = [x == y for x, y in zip(a["digests"], b["digests"])]
+        check(len(equal) == cfg["gpt_steps"] and all(equal),
+              "dp gpt: the workers differ after steps %r"
+              % [i for i, e in enumerate(equal) if not e])
+        check(a["update_on_kvstore"], "dp gpt: the Trainer did not update "
+              "on the dist store")
+        want = [a["layers"] * cfg["gpt_steps"]] * 3 + [0]
+        for d in docs:
+            check(not on_card or d["gpt"]["flash"] == want,
+                  "dp gpt rank %d: flash launches %r, want %r"
+                  % (d["rank"], d["gpt"]["flash"], want))
+            check(all(math.isfinite(x) for x in d["gpt"]["losses"]),
+                  "dp gpt: non-finite loss %r" % d["gpt"]["losses"])
+        out["gpt"] = {
+            "steps": cfg["gpt_steps"], "bitwise_equal_steps": sum(equal),
+            "losses": [d["gpt"]["losses"] for d in docs],
+            "flash": [d["gpt"]["flash"] for d in docs],
+            "step_ms": [d["gpt"]["step_ms"] for d in docs],
+            "wire_bytes_per_step": a["wire_bytes_per_step"],
+            "allreduce_ms_per_step": [d["gpt"]["allreduce_ms_per_step"]
+                                      for d in docs]}
+        print("dp gpt [%s]: gpt2_small %d layers by Trainer(kvstore="
+              "'dist_sync'), 2 workers x B %d x T %d, Adam %g: steps %s ms, "
+              "losses %s, bitwise equal after %d of %d steps, kv.allreduce "
+              "%s ms and %.1f MB a step; B1/B2/B3/B7 launches %s a worker"
+              % (card, a["layers"], cfg["gpt_b"], cfg["gpt_t"], TRAIN_LR,
+                 [["%.0f" % x for x in d["gpt"]["step_ms"]] for d in docs],
+                 [["%.4f" % x for x in d["gpt"]["losses"]] for d in docs],
+                 sum(equal), cfg["gpt_steps"],
+                 ["%.0f" % x for x in out["gpt"]["allreduce_ms_per_step"]],
+                 a["wire_bytes_per_step"] / 1e6, out["gpt"]["flash"]))
+    out["bandwidth"] = {"gloo_world2": [d["bw"] for d in docs],
+                        "nccl_world1": nccl[0]["bw"]}
+    for label, bw in (("gloo, 2 workers on one card", r0["bw"]),
+                      ("%s, world 1" % nccl[0]["bw"]["backend"],
+                       nccl[0]["bw"])):
+        print("dp bandwidth [%s]: measure_kvstore('dist_sync', %g MB, %d "
+              "arrays) %s: push+pull %.3f GB/s (%.3f GB/s a key), the "
+              "all-reduce alone %.3f GB/s"
+              % (card, cfg["bw_mb"], cfg["bw_arrays"], label, bw["GBps"],
+                 bw["per_key_GBps"], bw["allreduce_GBps"]))
+    out["flash_launches"] = [sum(d["gpt"]["flash"][i] for d in docs)
+                             if cfg["gpt"] else 0 for i in range(4)]
+    out["phase_s"] = time.perf_counter() - t0
+    print("dp [%s]: phase %.1f s (launches %.1f s and %.1f s)"
+          % (card, out["phase_s"], took, took_nccl))
+    return out
+
+
 def build_evidence(build):
     """The redesigned kernels' registers and spills (``-Xptxas -v``), the
     tensor-core instructions of B1's, B2's, B3's and B7's bf16 kernels in
@@ -7634,6 +8146,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     operators = operators_phase(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp = dp_phase(dev, card)
 
     b5 = "mxnet_tpu/ops/pallas/paged_attention.py:73"
     b6 = "mxnet_tpu/ops/pallas/paged_attention.py:231"
@@ -7653,6 +8168,9 @@ def main():
             flash_launches[name] += n
     # and the elastic trainers' (slice S4b, each worker's status files)
     for name, n in zip(FLASH_KERNELS, planes["elastic"]["flash_launches"]):
+        flash_launches[name] += n
+    # and the data-parallel gpt2_small workers' (slice S5a, exit lines)
+    for name, n in zip(FLASH_KERNELS, dp["flash_launches"]):
         flash_launches[name] += n
     # the paged kernels' launches: the greedy slice runs and slice S1b's
     # mixed, planes and spec runs (fp32), the int8 ones (int8 pools), and
@@ -7713,7 +8231,7 @@ def main():
                       "gluon_nd": gluon_nd, "resnet": resnet,
                       "vision": vision_, "planes": planes,
                       "images": images, "rnn": rnn,
-                      "operators": operators}))
+                      "operators": operators, "data_parallel": dp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,10 @@ compiles user kernels at run time (``CudaRtc``: CUDA C++ built by
 ``nvcc``).  ``mx.mod.Module`` trains a symbol through ``fit`` (the fused,
 guarded step; :mod:`io` iterators, :mod:`metric`, :mod:`lr_scheduler`,
 :mod:`callback`, :mod:`monitor`, checkpoints in :mod:`model`) and, given a
-single-process :mod:`kvstore` (``mx.kv.create("device")``), updates on
-the store as ``train_imagenet.py`` does; the vision zoo
+:mod:`kvstore` (``mx.kv.create("device")``, or ``"dist_sync"`` across
+``tools/launch.py``'s processes on ``torch.distributed``), updates on
+the store as ``train_imagenet.py`` does; over a context list it runs one
+replica a context (:mod:`parallel`, the mesh and collectives); the vision zoo
 (``gluon.model_zoo.vision``) and the conv layers run on ``Convolution``
 and ``Pooling`` (cuDNN on the card), with the fuse pass folding
 convolution, BatchNorm and activation into one node.  The host planes

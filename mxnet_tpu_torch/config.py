@@ -91,6 +91,20 @@ _register("MXTPU_STREAM_EPOCH_PREFETCH", 1, int,
 _register("MXTPU_COLLECTIVE_TIMEOUT", 0.0, float,
           "deadline of one kvstore barrier/all-reduce guard (0: the "
           "stall timeout).")
+# -- the data-parallel plane --------------------------------------------------
+_register("MXTPU_CONNECT_TIMEOUT", 60.0, float,
+          "seconds of one window in which a worker waits for the "
+          "coordinator at bring-up (base.maybe_init_distributed).")
+_register("MXTPU_CONNECT_RETRIES", 2, int,
+          "further connect windows before bring-up raises MXNetError "
+          "naming the coordinator.")
+_register("MXTPU_DIST_BACKEND", "", str,
+          "torch.distributed backend: empty follows the device (nccl for "
+          "CUDA tensors, gloo for host tensors); 'gloo' sends CUDA "
+          "tensors over gloo too (ranks sharing one card).")
+_register("MXTPU_ZERO", 0, int,
+          "1 shards the fused update's optimizer state 1/N over the "
+          "replicas of a context list (ZeRO-1); 0 replicates it.")
 # -- image data plane ---------------------------------------------------------
 _register("MXNET_CPU_WORKER_NTHREADS", 1, int,
           "host-side worker threads for the Python image pipeline "
@@ -210,10 +224,10 @@ ABSORBED = {
     "MXNET_EXEC_BULK_EXEC_INFERENCE": "the executor's plan runs eagerly",
     "MXNET_EXEC_BULK_EXEC_TRAIN": "the executor's plan runs eagerly",
     "MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN": "the plan runs eagerly",
-    "MXNET_KVSTORE_REDUCTION_NTHREADS": "single-process store (S5: "
-                                        "torch.distributed)",
-    "MXNET_KVSTORE_BIGARRAY_BOUND": "single-process store (S5)",
-    "MXNET_ENABLE_GPU_P2P": "one card (S5: NVLink via NCCL)",
+    "MXNET_KVSTORE_REDUCTION_NTHREADS": "one bucketed torch.distributed "
+                                        "all-reduce a push",
+    "MXNET_KVSTORE_BIGARRAY_BOUND": "no key is split: one bucket a push",
+    "MXNET_ENABLE_GPU_P2P": "NCCL picks NVLink or PCIe itself",
     "MXNET_BACKWARD_DO_MIRROR": "torch.utils.checkpoint",
     "MXNET_CUDNN_AUTOTUNE_DEFAULT": "torch.backends.cudnn.benchmark",
     "MXNET_PROFILER_MODE": "profiler.py records all scopes",
@@ -232,7 +246,6 @@ REFERENCE_ONLY = {
                                "format only",
     "MXTPU_AOT_CACHE_DIR": "no persisted compiled artifact: the kernels "
                            "are built once into ops/_build",
-    "MXTPU_ZERO": "ZeRO-1 comes with the multi-device slice (S5)",
     "BENCH_BATCH": "bench.py (the JAX package's benchmark) is not ported",
     "BENCH_STEPS": "bench.py is not ported",
     "BENCH_WARMUP": "bench.py is not ported",

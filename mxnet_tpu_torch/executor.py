@@ -30,11 +30,36 @@ programs become here:
   ``executor_forward_backward``), synchronized on their outputs so the
   durations are device work, not launch time.
 
-Not ported yet: mesh/SPMD placement and ``ctx_group`` staging (the
-multi-device slice), and the reference's ZeRO placements, AOT cache of
-the fit step and its cost telemetry.  The reference's per-program
-dispatch counter has no counterpart: a forward here is one eager pass of
-kernel launches.
+Over a context list (``mesh=``, a ``dp`` mesh of contexts from
+``parallel.dp_mesh_from_ctx``; ``Module(context=[...])`` binds so), the
+reference runs one SPMD program over the whole batch; here each context
+is one replica, as MXNet's executor group had: the arguments named in
+``batch_names`` are split evenly along their first axis (a batch that does
+not divide raises ``MXNetError``), every replica runs the graph on its
+slice with the parameters copied to its device (differentiably, so the
+replicas' gradients sum into the one bound gradient), and the outputs are
+concatenated back.  What the reference computes over the whole batch stays
+whole: a training BatchNorm, alone or fused into its convolution
+(``_fused_conv_bn_act``), takes its batch statistics over every replica's
+slice (sync-BN, :func:`_sync_bn_body`: partial sums moved to the first
+replica and summed, differentiably, the convolutions and the
+normalization staying on each replica), and the moving statistics move
+once.  Any other training node that updates aux states, a loss head with
+``normalization`` ``"batch"`` or ``"valid"``, and a node that folds the
+batch axis (a sum or mean over it; found at bind by
+:func:`_batch_folding`) run once on the first replica's device over the
+replicas' inputs concatenated, and their batch-shaped outputs are split
+back.  ``cpu(i)`` replicas share torch's one CPU device; ``gpu(i)`` replicas are
+distinct cards.  A ``monitor_all`` monitor sees each node's outputs
+gathered onto the first replica.  ``partition_rules`` resolve each
+array's spec (:meth:`param_spec`; storage stays whole on the first
+replica), and :meth:`zero_specs` gives the ZeRO-1 specs of the fused
+step's optimizer state (``MXTPU_ZERO=1``, ``optimizer.FusedUpdate``).
+
+Not ported yet: ``ctx_group`` staging (the next slice), and the
+reference's AOT cache of the fit step and its cost telemetry.  The
+reference's per-program dispatch counter has no counterpart: a forward
+here is one eager pass of kernel launches.
 """
 from __future__ import annotations
 
@@ -50,9 +75,15 @@ __all__ = ["Executor", "build_plan"]
 
 
 class Executor:
-    def __init__(self, symbol, ctx, args, args_grad, grad_req, aux_states):
+    def __init__(self, symbol, ctx, args, args_grad, grad_req, aux_states,
+                 mesh=None, batch_names=None, dp_axis="dp",
+                 partition_rules=None):
         self._symbol = symbol
         self._ctx = torch.device(ctx)
+        self._mesh = mesh
+        self._dp_axis = dp_axis
+        self._partition_rules = partition_rules
+        self._batch_names = frozenset(batch_names or ())
         self.arg_dict = dict(args)
         self.grad_dict = dict(args_grad) if args_grad else {}
         self.aux_dict = dict(aux_states) if aux_states else {}
@@ -97,7 +128,64 @@ class Executor:
                     "failed (%s: %s); running the unrewritten graph",
                     type(e).__name__, e)
                 self._opt_symbol = symbol
-        self._plan = build_plan(self._opt_symbol, self._ctx)
+        self._replicas = None
+        self._specs = {}
+        if mesh is not None:
+            self._build_specs()
+        self._plan = build_plan(self._opt_symbol, self._ctx,
+                                self._replicas, self._batch_names,
+                                self._bound())
+
+    # -- replicas and specs ------------------------------------------------
+    def _build_specs(self):
+        """Replicas of the mesh's ``dp`` axis, and every array's spec: batch
+        arguments ``batch_spec`` (their first axis must divide), the rest by
+        the partition rules (replicated when none matches)."""
+        from .context import resolve_device
+        from .parallel import sharding as _shd
+        mesh, axis = self._mesh, self._dp_axis
+        ndev = mesh.shape.get(axis, 1)
+        if ndev > 1:
+            self._replicas = [resolve_device(c) for c in mesh.devices.flat]
+        batch, ruled = {}, {}
+        for name, arr in list(self.arg_dict.items()) + \
+                list(self.aux_dict.items()):
+            if name in self._batch_names and arr.ndim >= 1:
+                if arr.shape[0] % ndev:
+                    raise MXNetError(
+                        "batch axis of %r (shape %s) not divisible by the "
+                        "%d-device data-parallel mesh" %
+                        (name, tuple(arr.shape), ndev))
+                batch[name] = _shd.batch_spec(arr.ndim, axis)
+            else:
+                ruled[name] = arr
+        self._specs = _shd.match_partition_rules(
+            self._partition_rules or [], ruled, mesh=mesh)
+        self._specs.update(batch)
+
+    def _bound(self):
+        """{name: tensor} of every bound argument and aux state."""
+        return {n: a.data for n, a in list(self.arg_dict.items()) +
+                list(self.aux_dict.items())}
+
+    def param_spec(self, name):
+        """The bound PartitionSpec of ``name`` (P() when unsharded or
+        without a mesh)."""
+        from .parallel.sharding import P
+        return self._specs.get(name, P())
+
+    def zero_specs(self, update_names):
+        """{name: PartitionSpec} of each updated parameter's optimizer
+        state sharded 1/N over the ``dp`` replicas
+        (``parallel.sharding.zero1_partition``), or None without a ``dp``
+        axis of more than one replica."""
+        if self._replicas is None:
+            return None
+        from .parallel.sharding import zero1_partition
+        return zero1_partition(
+            {n: self.arg_dict[n] for n in update_names}, self._mesh,
+            axis=self._dp_axis,
+            base_specs={n: self.param_spec(n) for n in update_names})
 
     def _diff_names(self):
         return [n for n in self._arg_names
@@ -133,7 +221,8 @@ class Executor:
         if self._interp_plan is None:
             self._interp_plan = self._plan \
                 if self._opt_symbol is self._symbol \
-                else build_plan(self._symbol, self._ctx)
+                else build_plan(self._symbol, self._ctx, self._replicas,
+                                self._batch_names, self._bound())
 
         def tap(node, vis):
             for j, v in enumerate(vis):
@@ -344,10 +433,24 @@ class Executor:
                      for n, a in new_args.items()
                      if self._grad_req.get(n, "null") != "null"}
         return Executor(self._symbol, self._ctx, new_args, args_grad,
-                        self._grad_req, new_aux)
+                        self._grad_req, new_aux, mesh=self._mesh,
+                        batch_names=self._batch_names,
+                        dp_axis=self._dp_axis,
+                        partition_rules=self._partition_rules)
 
 
-def build_plan(symbol, device):
+def _whole_batch(node, train):
+    """Does the reference compute ``node`` over the whole batch in a way a
+    replica's slice cannot: a training node updating aux states
+    (BatchNorm's batch and moving statistics) or a loss head normalized
+    by the batch or by its valid labels?"""
+    if node.params.get("normalization") in ("batch", "valid"):
+        return True
+    return bool(train) and any(inp.is_var and inp.is_aux_var
+                               for inp, _ in node.inputs)
+
+
+def build_plan(symbol, device, replicas=None, batch_names=(), bound=None):
     """``plan(arg_vals, aux_vals, train, tap=None, aux_out=None) ->
     outs``: ``symbol``'s graph evaluated node by node on ``device``
     (:func:`~.graph.graph.apply_node` per node), the evaluator of an
@@ -356,19 +459,17 @@ def build_plan(symbol, device):
     forward holds only the live activations (XLA frees the reference's
     buffers alike); a training forward keeps what autograd saved.  The new
     value an op returns for an aux input (``mutate_aux``) goes into
-    ``aux_out`` under the aux variable's name."""
+    ``aux_out`` under the aux variable's name.  With ``replicas`` (more
+    than one device) the plan runs one replica a device, the arguments of
+    ``batch_names`` split along their first axis, ``bound`` ({name:
+    tensor} of the bound arrays) giving the shapes that find the nodes
+    which fold the batch (:func:`_batch_folding`; see the module's
+    docstring)."""
+    if replicas is not None and len(replicas) > 1:
+        return _replica_plan(symbol, list(replicas), frozenset(batch_names),
+                             bound or {})
     from .graph.graph import apply_node
-    nodes = symbol._topo_nodes()
-    heads = list(symbol._outputs)
-    last_use = {}
-    for i, node in enumerate(nodes):
-        for inp, _ in node.inputs:
-            last_use[id(inp)] = i
-    keep = {id(n) for n, _ in heads}
-    drop_after = [[] for _ in nodes]
-    for node in nodes:
-        if id(node) in last_use and id(node) not in keep:
-            drop_after[last_use[id(node)]].append(id(node))
+    nodes, heads, drop_after = _liveness(symbol)
 
     def plan(arg_vals, aux_vals, train, tap=None, aux_out=None):
         vals = {}
@@ -390,5 +491,179 @@ def build_plan(symbol, device):
             for dead in drop_after[i]:
                 del vals[dead]
         return [vals[id(n)][i] for n, i in heads]
+
+    return plan
+
+
+def _liveness(symbol):
+    """``(nodes, heads, drop_after)``: the topological nodes, the heads,
+    and for each node the values whose last consumer it is (never a
+    head's)."""
+    nodes = symbol._topo_nodes()
+    heads = list(symbol._outputs)
+    last_use = {}
+    for i, node in enumerate(nodes):
+        for inp, _ in node.inputs:
+            last_use[id(inp)] = i
+    keep = {id(n) for n, _ in heads}
+    drop_after = [[] for _ in nodes]
+    for node in nodes:
+        if id(node) in last_use and id(node) not in keep:
+            drop_after[last_use[id(node)]].append(id(node))
+    return nodes, heads, drop_after
+
+
+def _sync_bn_body(node, train):
+    """The replicas' body of a training BatchNorm, alone or fused into its
+    convolution (sync-BN: the statistics summed across the replicas, the
+    convolutions and the normalization on each): ``body(parts)`` over one
+    list of per-replica tensors an input, returning ``(outputs a replica,
+    new_moving_mean, new_moving_var)``.  None for any other node, and for
+    BatchNorm with global statistics or ``output_mean_var``."""
+    if not train:
+        return None
+    p = {k: v for k, v in node.op.canon_params(dict(node.params)).items()
+         if not k.startswith("_")}
+    if p.get("use_global_stats"):
+        return None
+    if node.op.name == "BatchNorm" and not p.get("output_mean_var"):
+        from .ops.nn import batch_norm_replicas
+        return lambda parts: batch_norm_replicas(*parts, **p)
+    if node.op.name == "_fused_conv_bn_act":
+        from .ops.fused import conv_bn_act_replicas
+        return lambda parts: conv_bn_act_replicas(
+            parts[0], parts[1], list(zip(*parts[2:])), **p)
+    return None
+
+
+def _batch_folding(symbol, bound, batch_names, n_rep):
+    """ids of the nodes that fold the batch, which a replica's slice
+    cannot run.  The graph is walked on ``meta`` twice, at the bound batch
+    and at one replica's slice of it: a node fed by the batch whose every
+    output shrinks ``n_rep``-fold along its first axis is separable; one
+    whose output keeps its shape (a sum or mean over the batch axis or over
+    all axes) or shrinks elsewhere (a transpose or reshape across it) folds
+    the batch, and so does a node whose body cannot run on ``meta``."""
+    from .graph.graph import apply_node
+    meta = torch.device("meta")
+    folding = set()
+    vals = {}   # id(node) -> [(whole, slice, split)], None: unknown
+
+    def shrunk(t):
+        return torch.empty((t.shape[0] // n_rep,) + tuple(t.shape[1:]),
+                           dtype=t.dtype, device=meta)
+
+    for node in symbol._topo_nodes():
+        if node.is_var:
+            a = bound.get(node.name)
+            if a is None:
+                vals[id(node)] = None
+                continue
+            t = torch.empty(a.shape, dtype=a.dtype, device=meta)
+            split = not node.is_aux_var and node.name in batch_names and \
+                t.dim() >= 1
+            vals[id(node)] = [(t, shrunk(t) if split else t, split)]
+            continue
+        ins = [None if vals[id(inp)] is None else vals[id(inp)][idx]
+               for inp, idx in node.inputs]
+        if any(x is None for x in ins):
+            folding.add(id(node))
+            vals[id(node)] = None
+            continue
+        try:
+            whole = apply_node(node, [w for w, _, _ in ins], True, meta)[0]
+            if not any(s for _, _, s in ins):
+                vals[id(node)] = [(o, o, False) for o in whole]
+                continue
+            part = apply_node(node, [p for _, p, _ in ins], True, meta)[0]
+        except Exception:   # noqa: BLE001 - a body without a meta path
+            folding.add(id(node))
+            vals[id(node)] = None
+            continue
+        if all(w.dim() >= 1 and w.shape[0] % n_rep == 0 and
+               w.shape[0] > p.shape[0] and p.shape == shrunk(w).shape
+               for w, p in zip(whole, part)):
+            vals[id(node)] = [(w, p, True) for w, p in zip(whole, part)]
+            continue
+        folding.add(id(node))
+        # run whole, a batch-shaped output is split back (as at run time)
+        batch = next(w for w, _, s in ins if s).shape[0]
+        vals[id(node)] = [
+            (w, shrunk(w), True) if w.dim() >= 1 and w.shape[0] == batch
+            else (w, w, False) for w in whole]
+    return folding
+
+
+def _replica_plan(symbol, replicas, batch_names, bound):
+    """The plan over replicas: each value is ``(split, parts)``, ``parts``
+    one tensor a replica and ``split`` whether they are slices of the
+    batch (else copies of one value); values die after their last
+    consumer, as in :func:`build_plan`."""
+    from .graph.graph import apply_node
+    nodes, heads, drop_after = _liveness(symbol)
+    first = replicas[0]
+    n_rep = len(replicas)
+    folding = _batch_folding(symbol, bound, batch_names, n_rep)
+
+    def gather(split, parts):
+        if not split:
+            return parts[0]
+        return torch.cat([p.to(first) for p in parts])
+
+    def plan(arg_vals, aux_vals, train, tap=None, aux_out=None):
+        vals = {}
+        for i, node in enumerate(nodes):
+            if node.is_var:
+                if node.is_aux_var:
+                    v, split = aux_vals[node.name], False
+                else:
+                    v = arg_vals[node.name]
+                    split = node.name in batch_names and v.dim() >= 1
+                parts = [c.to(d) for c, d in zip(torch.chunk(v, n_rep),
+                                                 replicas)] if split \
+                    else [v.to(d) for d in replicas]
+                vals[id(node)] = [(split, parts)]
+                continue
+            ins = [vals[id(inp)][idx] for inp, idx in node.inputs]
+            sync = _sync_bn_body(node, train) \
+                if id(node) not in folding and ins[0][0] and \
+                not any(s for s, _ in ins[1:]) else None
+            if sync is not None:
+                per, new_mm, new_mv = sync([p for _, p in ins])
+                extra = [new_mm, new_mv]
+                outs = [(True, [v[j] for v in per])
+                        for j in range(len(per[0]))]
+            elif (id(node) in folding or _whole_batch(node, train)) and \
+                    any(s for s, _ in ins):
+                # the node runs once over the whole batch on the first
+                # replica, and its batch-shaped outputs are split back
+                sizes = [p.shape[0] for p in next(p for s, p in ins if s)]
+                vis, extra = apply_node(node, [gather(s, p) for s, p in ins],
+                                        train, first)
+                outs = []
+                for o in vis:
+                    if o.dim() >= 1 and o.shape[0] == sum(sizes):
+                        outs.append((True, [c.to(d) for c, d in zip(
+                            torch.split(o, sizes), replicas)]))
+                    else:
+                        outs.append((False, [o.to(d) for d in replicas]))
+            else:
+                split = any(s for s, _ in ins)
+                per = [apply_node(node, [p[r] for _, p in ins], train, d)
+                       for r, d in enumerate(replicas)]
+                extra = per[0][1]
+                outs = [(split, [v[0][j] for v in per])
+                        for j in range(len(per[0][0]))]
+            if extra and aux_out is not None:
+                for (inp, _), new in zip(node.inputs[-len(extra):], extra):
+                    if inp.is_var and inp.is_aux_var:
+                        aux_out[inp.name] = new.to(first)
+            vals[id(node)] = outs
+            del ins
+            if tap is not None:
+                tap(node, [gather(s, p) for s, p in outs])
+            for dead in drop_after[i]:
+                del vals[dead]
+        return [gather(*vals[id(n)][i]) for n, i in heads]
 
     return plan

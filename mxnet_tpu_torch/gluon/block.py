@@ -426,7 +426,7 @@ class _CachedOp:
         if fed_nd:
             device = args[0]._device
             inputs = [a._data if isinstance(a, NDArray) else a for a in args]
-            vals = [p.data()._data for p in self.params]
+            vals = [p.data(device)._data for p in self.params]
         else:
             device = args[0].device if isinstance(args[0], torch.Tensor) \
                 else None
@@ -496,11 +496,13 @@ class HybridBlock(Block):
 
     # -- eager path --------------------------------------------------------
     def _call_eager(self, *args, **kwargs):
+        # a replica reads its parameters on its own device
+        dev = getattr(args[0], "_device", None) if args else None
         try:
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p.data(dev) for k, p in self._reg_params.items()}
         except DeferredInitializationError:
             self._finish_deferred(*args)
-            params = {k: p.data() for k, p in self._reg_params.items()}
+            params = {k: p.data(dev) for k, p in self._reg_params.items()}
         return self.hybrid_forward(nd, *args, **kwargs, **params)
 
     def _finish_deferred(self, *args):

@@ -88,8 +88,8 @@ class GPTBlock(HybridBlock):
                  moe_experts=0, moe_capacity=2.0, **kwargs):
         if moe_experts:
             raise NotImplementedError(
-                "mixture-of-experts blocks belong to the multi-device "
-                "slice of the port")
+                "mixture-of-experts blocks belong to the next slice of "
+                "the port (S5b)")
         super().__init__(**kwargs)
         self._dropout = dropout
         with self.name_scope():
@@ -325,10 +325,10 @@ def get_gpt(num_layers, units, num_heads, vocab_size=50257, max_len=1024,
 
 def gpt2_tiny_moe(moe_experts=4, **kwargs):
     """The 2-layer MoE test config is not ported yet (its experts belong
-    to the multi-device slice)."""
+    to the next slice of the port, S5b)."""
     raise NotImplementedError(
-        "gpt2_tiny_moe: mixture-of-experts blocks belong to the "
-        "multi-device slice of the port")
+        "gpt2_tiny_moe: mixture-of-experts blocks belong to the next "
+        "slice of the port (S5b)")
 
 
 def gpt2_tiny(**kwargs):

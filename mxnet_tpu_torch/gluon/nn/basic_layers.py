@@ -13,7 +13,7 @@ in]`` weight; ``LayerNorm`` runs its statistics in at least fp32;
 rows ordered ``[H, 3, D]``, which the serving path reads) and attends
 through ``F._contrib_flash_attention``, the flash kernels (B1 forward, B2
 + B3 or B7 backward).  Ring attention over a mesh
-(``sequence_parallel``) belongs to the multi-device slice.
+(``sequence_parallel``) belongs to the next slice of the port (S5b).
 """
 from __future__ import annotations
 

@@ -26,8 +26,15 @@ Shapes with a 0 defer the initialization to the first forward, which
 fills them from the input (each layer's ``infer_shape``).  Devices: a
 ``ctx`` (a :class:`~mxnet_tpu_torch.context.Context`, a ``torch.device``
 or a string) places the data; without one the default device (the card)
-is used, as every entry point of the port does.  A list of more than one
-context is the multi-device slice (S5) and raises.
+is used, as every entry point of the port does.  A list of contexts
+(``initialize(ctx=[...])``) makes one replica a context, as MXNet's
+per-device copies: the leaf lives on the first context, a forward on
+another device reads it through a differentiable copy (``data(ctx)``), so
+every replica's gradient sums into the one buffer (the reference's
+mesh-replicated parameter and all-reduced gradient).  ``list_ctx`` names
+the contexts; ``list_data`` and ``list_grad`` hold the one leaf and the
+one summed gradient, as the reference's.  Duplicate contexts raise
+(``parallel.dp_mesh_from_ctx``).
 """
 from __future__ import annotations
 
@@ -118,13 +125,19 @@ def write_grads(params):
 
 
 def _one_ctx(ctx):
+    """The first context of a list (the leaf's home), or ``ctx``."""
     if isinstance(ctx, (list, tuple)):
-        if len(ctx) > 1:
-            raise NotImplementedError(
-                "a Parameter on %d devices belongs to the multi-device "
-                "slice of the port (S5)" % len(ctx))
         ctx = ctx[0] if ctx else None
     return ctx
+
+
+def _ctx_list(ctx):
+    """The replicas' contexts of a list of more than one (validated: no
+    duplicates, visible cards), else None."""
+    if isinstance(ctx, (list, tuple)) and len(ctx) > 1:
+        from ..parallel.mesh import dp_mesh_from_ctx
+        return list(dp_mesh_from_ctx(ctx).devices.flat)
+    return None
 
 
 class Parameter:
@@ -146,6 +159,8 @@ class Parameter:
         self._deferred_init = None
         #: the backward pass that last wrote the gradient (_WriteGrads)
         self._write_task = None
+        #: the replicas' contexts (initialize(ctx=[...])), else None
+        self._ctx_list = None
         #: (weak reference to a block, attribute) pairs that register the
         #: leaf with torch
         self._owners = []
@@ -196,6 +211,7 @@ class Parameter:
         self._finish_init(init, ctx, default_init, generator)
 
     def _finish_init(self, init, ctx, default_init, generator=None):
+        self._ctx_list = _ctx_list(ctx)
         ctx = _one_ctx(ctx)
         dev = resolve_device(ctx) if ctx is not None or self._data is None \
             else self._data._device
@@ -264,13 +280,19 @@ class Parameter:
                 "Blocks" % self.name)
 
     def data(self, ctx=None):
-        """The parameter's NDArray (the live leaf, never a copy)."""
+        """The parameter's NDArray (the live leaf, never a copy); for a
+        replica on another device than the leaf's, a differentiable copy
+        there."""
         self._check_initialized()
         arr = self._data
         # torch's Module.to() moves the leaf under the NDArray
         arr._device = arr._data.device
         if arr._grad is not None:
             arr._grad._device = arr._device
+        if ctx is not None and self._ctx_list is not None:
+            dev = resolve_device(ctx)
+            if dev != arr._device:
+                return NDArray(arr._data.to(dev), dev)
         return arr
 
     def list_data(self):
@@ -289,6 +311,9 @@ class Parameter:
         return [self.grad()]
 
     def list_ctx(self):
+        if self._ctx_list is not None:
+            self._check_initialized()
+            return list(self._ctx_list)
         return [self.data().context]
 
     def set_data(self, data):

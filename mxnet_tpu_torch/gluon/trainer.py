@@ -59,8 +59,18 @@ kvstore at all (the fused update above).  A ``KVStore`` instance
 parameter's weight is stored under its index and the optimizer is set on
 the store (``update_on_kvstore``), then every step pushes each gradient
 and pulls the updated weight back; ``save_states``/``load_states`` go
-through the store's optimizer states.  The ``dist*`` kinds belong to the
-multi-device slice and raise.
+through the store's optimizer states.
+
+``kvstore="dist_sync"`` (any ``dist*`` kind) joins the job's process
+group (``kv.create``) and updates on the store: each step pushes every
+live gradient in ONE push (one bucketed all-reduce over the workers,
+``compression_params`` quantizing it as ``set_gradient_compression``
+does) and pulls every updated weight back, so the workers' weights stay
+bitwise equal.  Parameters initialized on a context list carry one
+gradient summed over their replicas (``parameter.py``); under
+``MXTPU_ZERO=1``, where every live parameter is on the same list of more
+than one context, the fused update shards its state 1/N over those
+replicas (``optimizer.FusedUpdate``; the reference's ``trainer.py:155``).
 """
 from __future__ import annotations
 
@@ -92,11 +102,8 @@ class Trainer:
                 raise ValueError(
                     "First argument must be a list or dict of Parameters, "
                     "got list of %s." % (type(param)))
-        if isinstance(kvstore, str) and "dist" in kvstore:
-            raise NotImplementedError(
-                "kvstore %r: distributed kvstores belong to the "
-                "multi-device slice of the port" % (kvstore,))
         self._params = list(params)
+        self._compression_params = compression_params
         self._names = [p.name for p in self._params]
         optimizer_params = dict(optimizer_params or {})
         self._scale = optimizer_params.get("rescale_grad", 1.0)
@@ -132,6 +139,8 @@ class Trainer:
         self._kv, self._update_on_kvstore = _create_kvstore(
             self._kvstore, 1, arg_arrays)
         if self._kv is not None:
+            if self._compression_params:
+                self._kv.set_gradient_compression(self._compression_params)
             for i, p in enumerate(self._params):
                 if p.grad_req != "null":
                     self._kv.init(i, p.data())
@@ -186,13 +195,18 @@ class Trainer:
             _watchdog.renew("trainer_step", phase="train")
 
     def _kv_step(self):
-        """The reference's per-parameter store loop: push the gradient,
-        then pull the weight the store updated (one device: a store is
-        always one given as an instance, which updates)."""
-        for i, p in enumerate(self._params):
-            if p.grad_req != "null":
-                self._kv.push(i, p.list_grad())
-                self._kv.pull(i, p.list_data())
+        """Push every live gradient, then pull every weight the store
+        updated, each as one call over the keys (one all-reduce a step on
+        a ``dist*`` store; the per-key sums are the reference's per-key
+        pushes').  The Trainer holds a store only with
+        ``update_on_kvstore`` (``model._create_kvstore``)."""
+        live = [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null"]
+        if not live:
+            return
+        keys = [i for i, _ in live]
+        self._kv.push(keys, [p.list_grad() for _, p in live])
+        self._kv.pull(keys, [p.list_data() for _, p in live])
 
     # -- fused multi-tensor step -------------------------------------------
     def _fused_step(self, live):
@@ -209,7 +223,8 @@ class Trainer:
             return True
         keys = {i: str(i) for i, _, _ in live}
         params = {keys[i]: w for i, w, _ in live}
-        fused.configure(keys, params)
+        replicas, zero = self._zero_layout(live, params)
+        fused.configure(keys, params, replicas=replicas, zero_specs=zero)
         poison = float("nan") if _fault.trigger("grad.nan") else 0.0
         lr, wd, rescale, t = fused.begin()
         t0 = time.perf_counter_ns()
@@ -223,6 +238,26 @@ class Trainer:
         _telemetry.note_train_step(t0, t1, None, None, None, "trainer_step")
         fused.finish(ok)
         return True
+
+    def _zero_layout(self, live, params):
+        """``(replicas, zero specs)``: the devices of the one context list
+        every live parameter was initialized on (None otherwise) and, under
+        ``MXTPU_ZERO=1``, each parameter's ZeRO-1 spec over them."""
+        lists = {tuple(self._params[i]._ctx_list or ()) for i, _, _ in live}
+        if len(lists) != 1 or len(next(iter(lists))) < 2:
+            return None, None
+        from ..context import resolve_device
+        from ..ops.optimizer_ops import zero_stage
+        from ..parallel.mesh import dp_mesh_from_ctx
+        ctxs = list(next(iter(lists)))
+        replicas = [resolve_device(c) for c in ctxs]
+        if zero_stage() < 1:
+            return replicas, None
+        from ..parallel.sharding import zero1_spec
+        mesh = dp_mesh_from_ctx(ctxs)
+        return replicas, {str(i): zero1_spec(w.shape, mesh,
+                                             name=self._params[i].name)
+                          for i, w, _ in live}
 
     def _resolve_pending_verdict(self):
         """Apply the previous fused step's verdict (skip streak and clock

@@ -1,7 +1,15 @@
 """Gluon utilities (counterpart of ``mxnet_tpu/gluon/utils.py``):
-``split_data``, ``split_and_load``, ``clip_global_norm`` and
-``check_sha1``.  ``shard_and_load`` (a batch sharded over a device mesh)
-belongs to the multi-device slice, and ``download`` needs a network.
+``split_data``, ``split_and_load``, ``shard_and_load``,
+``clip_global_norm`` and ``check_sha1``.  ``download`` needs a network.
+
+The two ways to feed a context list: ``split_and_load`` gives one slice a
+context, each on its device, for a loop that runs the net once a replica
+(MXNet's way; each forward reads the parameters on its slice's device and
+the gradients sum into the one buffer); ``shard_and_load`` gives the
+reference's ONE NDArray of the whole batch, checked to divide over the
+contexts, on the first context, where the net runs once over it (the
+reference's SPMD program computes exactly that: one device's result on
+the whole batch).
 """
 from __future__ import annotations
 
@@ -12,8 +20,27 @@ import torch
 
 from .. import ndarray as nd
 
-__all__ = ["split_data", "split_and_load", "clip_global_norm",
-           "check_sha1"]
+__all__ = ["split_data", "split_and_load", "shard_and_load",
+           "clip_global_norm", "check_sha1"]
+
+
+def shard_and_load(data, ctx_list, batch_axis=0):
+    """One batch for the contexts of ``ctx_list`` as one NDArray on the
+    first (see the module's docstring); its ``batch_axis`` must divide by
+    the number of contexts, and the contexts must be distinct."""
+    if not isinstance(ctx_list, (list, tuple)):
+        ctx_list = [ctx_list]
+    if not isinstance(data, nd.NDArray):
+        data = nd.array(data, ctx=ctx_list[0])
+    if len(ctx_list) == 1:
+        return data.as_in_context(ctx_list[0])
+    if data.shape[batch_axis] % len(ctx_list):
+        raise ValueError(
+            "batch axis %d of shape %s not divisible by %d devices"
+            % (batch_axis, tuple(data.shape), len(ctx_list)))
+    from ..parallel.mesh import dp_mesh_from_ctx
+    dp_mesh_from_ctx(ctx_list)
+    return data.as_in_context(ctx_list[0])
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):

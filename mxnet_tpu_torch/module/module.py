@@ -2,7 +2,13 @@
 ``mxnet_tpu/module/module.py``).
 
 One executor on one device (the card unless ``context`` or a ``with
-mx.Context(...)`` scope names the CPU).  ``Module.fit`` runs
+mx.Context(...)`` scope names the CPU), or over a context list of N
+devices one replica a context (``executor.py``): each batch is split
+evenly over the replicas, their gradients summed into the one bound
+gradient, and the result is one device's on the whole batch (BatchNorm and
+the batch-normalized loss heads see the whole batch).  Under
+``MXTPU_ZERO=1`` the fused step's optimizer state is sharded 1/N over
+the replicas (``optimizer.FusedUpdate``).  ``Module.fit`` runs
 :meth:`Module.fit_step` a batch: where the configuration allows
 (``_fused_eligible``: SGD, SGD with momentum or Adam, ``grad_req`` write,
 no monitor, no input gradients) one fused step, the executor's
@@ -36,8 +42,10 @@ The Module keeps its own copy of the parameters on the host
 keeps its ``_arg_params``.  ``save_checkpoint`` writes through
 ``CheckpointManager`` (manifest last, ``keep_last``, async writes, the
 stream cursor that ``fit`` stamps), optimizer states save checksummed
-(``checkpoint.write_state_file``) and load validated.  Multi-device
-contexts, the ``dist`` kvstores and ``partition_rules`` come with S5.
+(``checkpoint.write_state_file``) and load validated.  A ``dist*_sync``
+kvstore scales the batch of ``rescale_grad`` by its workers, as the
+reference's ``init_optimizer`` does, and ``partition_rules`` resolve each
+array's spec at bind (``Executor.param_spec``).
 """
 from __future__ import annotations
 
@@ -61,18 +69,17 @@ class Module(BaseModule):
     def __init__(self, symbol, data_names=("data",),
                  label_names=("softmax_label",), logger=logging,
                  context=None, work_load_list=None, fixed_param_names=None,
-                 state_names=None):
+                 state_names=None, partition_rules=None):
         super().__init__(logger=logger)
         if context is None:
             context = ctx_mod.current_context()
-        if isinstance(context, (list, tuple)):
-            if len(context) != 1:
-                raise NotImplementedError(
-                    "Module over %d devices: the multi-device slice of the "
-                    "port (S5)" % len(context))
-            context = context[0]
-        self._device = ctx_mod.resolve_device(context)
-        self._context = [self._device]
+        if not isinstance(context, (list, tuple)):
+            context = [context]
+        context = [c if isinstance(c, ctx_mod.Context) else
+                   ctx_mod.Context(ctx_mod.as_device(c)) for c in context]
+        self._device = ctx_mod.resolve_device(context[0])
+        self._context = context
+        self._partition_rules = partition_rules
 
         self._symbol = symbol
         data_names = list(data_names) if data_names is not None else []
@@ -298,8 +305,16 @@ class Module(BaseModule):
             else:
                 req[name] = grad_req if isinstance(grad_req, str) \
                     else grad_req.get(name, "write")
-        self._exec = self._symbol.simple_bind(self._device, grad_req=req,
-                                              **shape_kwargs)
+        mesh = batch_names = None
+        if len(self._context) > 1:
+            # one replica a context: the batch split over them, their
+            # gradients summed (executor.py)
+            from ..parallel.mesh import dp_mesh_from_ctx
+            mesh = dp_mesh_from_ctx(self._context)
+            batch_names = self._data_names + self._label_names
+        self._exec = self._symbol.simple_bind(
+            self._device, grad_req=req, mesh=mesh, batch_names=batch_names,
+            partition_rules=self._partition_rules, **shape_kwargs)
         self.binded = True
         if shared_module is not None and shared_module.params_initialized:
             self._arg_params = shared_module._arg_params
@@ -423,7 +438,10 @@ class Module(BaseModule):
         keys = {i: n for i, n in enumerate(self._param_names)
                 if exe._grad_req.get(n) == "write"}
         params = {n: exe.arg_dict[n].data for n in keys.values()}
-        self._fused.configure(keys, params)
+        from ..ops.optimizer_ops import zero_stage
+        zero = exe.zero_specs(list(params)) if zero_stage() >= 1 else None
+        self._fused.configure(keys, params, replicas=exe._replicas,
+                              zero_specs=zero)
         if self._fit_step is None or self._fit_step[0] is not \
                 self._fused.key:
             self._fit_step = (self._fused.key, exe.make_fit_step(

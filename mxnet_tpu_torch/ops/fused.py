@@ -30,7 +30,8 @@ import numpy as _np
 import torch
 
 from . import layer_norm as _ln
-from .nn import _activation, _batch_norm, _convolution, _layer_norm
+from .nn import (_activation, _batch_norm, _convolution, _layer_norm,
+                 batch_norm_replicas)
 from .registry import register_op
 
 __all__ = ["ConstPayload", "ACT_FUSABLE"]
@@ -98,6 +99,25 @@ def _fused_conv_bn_act(data, weight, *rest, kernel=(), stride=(), dilate=(),
         b = b + bias.to(sdt) * scale
     out = _convolution(data, w, b.to(data.dtype), **conv)
     return _apply_act(out, act_type), moving_mean, moving_var
+
+
+def conv_bn_act_replicas(datas, weights, rests, kernel=(), stride=(),
+                         dilate=(), pad=(), num_filter=0, num_group=1,
+                         no_bias=False, act_type="linear", eps=1e-3,
+                         momentum=0.9, fix_gamma=True, **_):
+    """``_fused_conv_bn_act`` in training over replicas: each replica's
+    convolution on its device, BatchNorm's statistics over all of them
+    (:func:`.nn.batch_norm_replicas`), the activation on each.  ``rests``
+    are each replica's trailing inputs (as the op takes them).  Returns
+    ``([out] a replica, new_moving_mean, new_moving_var)``."""
+    conv = {"kernel": kernel, "stride": stride, "dilate": dilate,
+            "pad": pad, "num_filter": num_filter, "num_group": num_group}
+    cols = [list(r) if no_bias else list(r[1:]) for r in rests]
+    ys = [_convolution(x, w, None if no_bias else r[0], no_bias=no_bias,
+                       **conv) for x, w, r in zip(datas, weights, rests)]
+    outs, mm, mv = batch_norm_replicas(
+        ys, *zip(*cols), eps=eps, momentum=momentum, fix_gamma=fix_gamma)
+    return [[_apply_act(o[0], act_type)] for o in outs], mm, mv
 
 
 # ---------------------------------------------------------------------------

@@ -396,12 +396,14 @@ def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
 def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                 momentum=0.9, fix_gamma=True, use_global_stats=False,
                 output_mean_var=False, axis=1, cudnn_off=False,
-                _train=False):
+                _train=False, _stats=None):
     """``(visible outputs..., new_moving_mean, new_moving_var)``: while
     training (and not ``use_global_stats``) the batch statistics
     normalize and the moving ones move by ``momentum``; otherwise the
     moving ones normalize and come back unchanged.  Statistics in at least
-    fp32, the biased variance, as the reference's."""
+    fp32, the biased variance, as the reference's.  ``_stats`` (mean,
+    variance) replaces the batch statistics of ``data`` when ``data`` is
+    one replica's slice of the batch (:func:`batch_norm_replicas`)."""
     ax = axis % data.dim()
     dims = tuple(i for i in range(data.dim()) if i != ax)
     bshape = tuple(data.shape[ax] if i == ax else 1
@@ -410,9 +412,12 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         gamma = torch.ones_like(gamma).detach()
     sdt = torch.promote_types(data.dtype, torch.float32)
     if _train and not use_global_stats:
-        data_s = data.to(sdt)
-        mean = data_s.mean(dim=dims)
-        var = data_s.var(dim=dims, unbiased=False)
+        if _stats is None:
+            data_s = data.to(sdt)
+            mean = data_s.mean(dim=dims)
+            var = data_s.var(dim=dims, unbiased=False)
+        else:
+            mean, var = _stats
         new_mm = moving_mean * momentum + \
             mean.detach().to(moving_mean.dtype) * (1 - momentum)
         new_mv = moving_var * momentum + \
@@ -431,6 +436,39 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 
 alias("BatchNorm", "BatchNorm_v1", "CuDNNBatchNorm")
+
+
+def batch_norm_replicas(datas, gammas, betas, mms, mvs, axis=1, **params):
+    """Training BatchNorm over replicas (sync-BN): ``datas`` are the
+    replicas' slices of one batch, each on its device, and the other
+    lists one copy a replica.  The batch statistics are those of the
+    slices together, in two passes as one device's (the mean of the
+    summed slices, then the biased variance of the summed squared
+    deviations), summed on the first replica's device and differentiable
+    through the copies; each slice is then normalized on its device.
+    Returns ``([visible outputs] a replica, new_moving_mean,
+    new_moving_var)``, the moving statistics the first replica's."""
+    x0 = datas[0]
+    ax = axis % x0.dim()
+    dims = tuple(i for i in range(x0.dim()) if i != ax)
+    bshape = tuple(x0.shape[ax] if i == ax else 1 for i in range(x0.dim()))
+    sdt = torch.promote_types(x0.dtype, torch.float32)
+    first = x0.device
+    count = sum(x.numel() // x.shape[ax] for x in datas)
+    mean = sum(x.to(sdt).sum(dim=dims).to(first) for x in datas) / count
+    # the deviations' gradient through the mean sums to zero, and
+    # torch.var's backward leaves it out: so does this one
+    dev = mean.detach()
+    var = sum(((x.to(sdt) - dev.to(x.device).reshape(bshape)) ** 2)
+              .sum(dim=dims).to(first) for x in datas) / count
+    outs, new = [], None
+    for x, g, b, mm, mv in zip(datas, gammas, betas, mms, mvs):
+        out = _batch_norm(x, g, b, mm, mv, axis=axis, _train=True,
+                          _stats=(mean.to(x.device), var.to(x.device)),
+                          **params)
+        outs.append(list(out[:-2]))
+        new = out[-2:] if new is None else new
+    return outs, new[0], new[1]
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ maps one rule over the parameter tree inside one jitted program, and here
 the torch meaning is one multi-tensor update, ``torch._foreach_*`` over
 the parameter list, with the same arithmetic as the per-parameter
 optimizers of :mod:`mxnet_tpu_torch.optimizer`, op for op.  The ZeRO-1
-stage (sharded optimizer state) belongs to the multi-device slice.
+stage (:func:`zero_stage`, sharded optimizer state over a context list's
+replicas) is ``optimizer.FusedUpdate``'s.
 """
 from __future__ import annotations
 
@@ -308,6 +309,12 @@ def make_guarded_apply(apply_fn, defer_verdict=False):
         return ok
 
     return guarded
+
+
+def zero_stage(default=0):
+    """The ZeRO stage of the fused update over replicas: 1 shards the
+    optimizer state 1/N (``MXTPU_ZERO``, the reference's knob)."""
+    return int(os.environ.get("MXTPU_ZERO", "") or default)
 
 
 def max_consecutive_skips():

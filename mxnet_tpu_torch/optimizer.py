@@ -625,6 +625,56 @@ def fused_state_from_updater(kind, state, weight):
     raise ValueError("unknown fused kind %r" % kind)
 
 
+def _zname(name, r):
+    return "%s#%d" % (name, r)
+
+
+def _map_state(fn, st):
+    """A fused state (``()``, a tensor, or a tuple of tensors) with ``fn``
+    applied to each tensor."""
+    if isinstance(st, torch.Tensor):
+        return fn(st)
+    return tuple(_map_state(fn, s) for s in st)
+
+
+def _state_leaves(st):
+    if isinstance(st, torch.Tensor):
+        return [st]
+    return [t for s in st for t in _state_leaves(s)]
+
+
+def _zero_guarded(inner, dims, replicas):
+    """The guarded update over ZeRO-1 slices: each sharded parameter's
+    weight and summed gradient cut along its dimension, slice r on replica
+    r against state slice r, then the slices that moved to another device
+    copied back into the weight."""
+    n = len(replicas)
+
+    def guarded(params, grads, state, lr, wd, rescale_grad, t, poison=0.0):
+        zp, zg, zs, back = {}, {}, {}, []
+        for name, w in params.items():
+            d = dims.get(name)
+            if d is None:
+                zp[name], zg[name], zs[name] = w, grads[name], state[name]
+                continue
+            for r, (wr, gr) in enumerate(zip(torch.chunk(w, n, d),
+                                             torch.chunk(grads[name], n, d))):
+                key = _zname(name, r)
+                dev = replicas[r]
+                if wr.device != dev:
+                    back.append((wr, key))
+                    wr = wr.to(dev)
+                zp[key], zg[key], zs[key] = wr, gr.to(dev), state[name][r]
+        ok = inner(zp, zg, zs, lr, wd, rescale_grad, t, poison)
+        with torch.no_grad():
+            for dst, key in back:
+                dst.copy_(zp[key])
+        guarded.sync_ns = getattr(inner, "sync_ns", None)
+        return ok
+
+    return guarded
+
+
 def fused_state_to_updater(kind, state):
     """A fused per-parameter state in the layout ``create_state`` makes."""
     if kind == "sgd":
@@ -653,7 +703,21 @@ class FusedUpdate:
     ``defer_verdict`` (the Trainer) the verdict is a device scalar read
     at the next ``resolve()``, which every hand-off of state calls first;
     otherwise (the Module) it is read at once and the streak limit
-    raises there."""
+    raises there.
+
+    Over replicas (``configure(..., replicas=[devices], zero_specs=...)``,
+    a context list), ZeRO-1 (``MXTPU_ZERO=1``, the reference's
+    ``executor.py:151``): the state of each parameter whose spec shards a
+    dimension over ``dp`` is held as N slices, slice i on replica i, and
+    the update runs slice by slice: replica i updates its slice of the
+    weight from its slice of the summed gradient (the reduce-scatter) and
+    the slices come back into the weight (the all-gather; on one device
+    the slices are views, updated in place).  The state goes to the
+    Updater whole (``flush``) and comes back sliced.  The ``sharding.*``
+    gauges (``opt_state_bytes_per_device``, ``collective_bytes_modeled``,
+    ``collective_bytes_per_step``, ``zero_stage``) are set at each
+    rebuild over replicas, as the reference sets them at each fit-step
+    setup."""
 
     def __init__(self, optimizer, updater, defer_verdict=False):
         self.optimizer = optimizer
@@ -668,21 +732,30 @@ class FusedUpdate:
     def _reset(self):
         self.key = self.kind = self.state = self.guarded = None
         self.keys = {}
+        self.zero = None                # ({name: dim or None}, replicas)
 
     @property
     def active(self):
         """True while the fused form holds the optimizer state."""
         return self.key is not None
 
-    def configure(self, keys, params):
-        from .ops.optimizer_ops import make_guarded_apply
+    def configure(self, keys, params, replicas=None, zero_specs=None):
+        from .ops.optimizer_ops import make_fused_apply, make_guarded_apply
         from .precision import policy_fingerprint
         opt = self.optimizer
         kind = opt.fused_kind()
+        zero = None
+        if zero_specs is not None and replicas is not None and \
+                len(replicas) > 1:
+            from .parallel.sharding import zero1_dim
+            zero = ({n: zero1_dim(zero_specs.get(n)) for n in params},
+                    list(replicas))
         key = (kind, tuple(keys.items()),
                tuple(sorted(opt.fused_mults(keys).items())),
                tuple(sorted(opt.fused_hyper().items())),
                tuple(tuple(p.shape) for p in params.values()),
+               None if zero is None else
+               (tuple(sorted(zero[0].items())), tuple(map(str, zero[1]))),
                policy_fingerprint(self.precision))
         if key == self.key:
             return
@@ -695,7 +768,66 @@ class FusedUpdate:
                     kind, self.updater.states[i], params[name])
         self.key, self.kind, self.keys, self.state = key, kind, \
             dict(keys), state
-        self.guarded = make_guarded_apply(apply_fn, self.defer_verdict)
+        if zero is None:
+            self.guarded = make_guarded_apply(apply_fn, self.defer_verdict)
+        else:
+            dims, reps = zero
+            mults = opt.fused_mults(keys)
+            _, slice_apply = make_fused_apply(
+                kind, {_zname(n, r): mults[n] for n, d in dims.items()
+                       for r in range(len(reps)) if d is not None}
+                | {n: mults[n] for n, d in dims.items() if d is None},
+                **opt.fused_hyper())
+            for n, d in dims.items():
+                if d is not None:
+                    state[n] = [_map_state(
+                        lambda t, r=r, d=d: torch.chunk(t, len(reps), d)[r]
+                        .to(reps[r], copy=True).contiguous(), state[n])
+                        for r in range(len(reps))]
+            self.guarded = _zero_guarded(
+                make_guarded_apply(slice_apply, self.defer_verdict),
+                dims, reps)
+        self.zero = zero
+        if replicas is not None and len(replicas) > 1:
+            self._note_sharding(params, len(replicas))
+
+    def _note_sharding(self, params, n):
+        """The reference's ``sharding.*`` gauges for this update over ``n``
+        replicas: the optimizer state a replica holds (a sharded state's
+        slice, a replicated one whole), the bytes the weight update's
+        collectives move a replica (ring model: reduce-scatter plus
+        all-gather, or the all-reduce, 2B(n-1)/n a parameter) and the ZeRO
+        stage."""
+        from . import telemetry as _telemetry
+        dims = self.zero[0] if self.zero is not None else {}
+        state_bytes = 0
+        for name, st in self.state.items():
+            leaves = _state_leaves(st)
+            total = sum(t.numel() * t.element_size() for t in leaves)
+            state_bytes += total // n if dims.get(name) is not None \
+                else total
+        coll = sum(2 * p.numel() * p.element_size() * (n - 1) // n
+                   for p in params.values())
+        _telemetry.gauge("sharding.opt_state_bytes_per_device").set(
+            state_bytes)
+        _telemetry.gauge("sharding.collective_bytes_modeled").set(coll)
+        _telemetry.gauge("sharding.collective_bytes_per_step").set(coll)
+        _telemetry.gauge("sharding.zero_stage").set(
+            1 if self.zero is not None else 0)
+
+    def full_state(self, name):
+        """``name``'s state whole (a ZeRO-1 state's slices gathered onto the
+        first replica)."""
+        st = self.state[name]
+        d = self.zero[0].get(name) if self.zero is not None else None
+        if d is None:
+            return st
+        first = self.zero[1][0]
+        flat = [_state_leaves(s) for s in st]
+        whole = [torch.cat([f[j].to(first) for f in flat], dim=d)
+                 for j in range(len(flat[0]))]
+        it = iter(whole)
+        return _map_state(lambda t: next(it), st[0])
 
     def flush(self):
         """Mirror the state into the Updater (a pending verdict settled
@@ -706,7 +838,7 @@ class FusedUpdate:
             return
         for i, name in self.keys.items():
             self.updater.states[i] = fused_state_to_updater(
-                self.kind, self.state[name])
+                self.kind, self.full_state(name))
 
     def drop(self, flush=True):
         """Leave the state to the Updater (``flush=False``: the Updater's

@@ -385,11 +385,14 @@ class Symbol:
 
     # -- binding -----------------------------------------------------------
     def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    mesh=None, batch_names=None, partition_rules=None,
                     **kwargs):
         """Infer every argument's shape from ``kwargs`` (name -> shape),
         allocate zeros for arguments, gradients and auxiliary states on
         ``ctx`` (``None``: ``cuda:0``, raising without a card) and bind.
-        ``mx.cpu()``/``mx.gpu(i)`` are accepted as ``ctx``."""
+        ``mx.cpu()``/``mx.gpu(i)`` are accepted as ``ctx``.  ``mesh`` (a
+        ``dp`` mesh of contexts), ``batch_names`` and ``partition_rules``
+        bind one replica a context (see ``executor.py``)."""
         from ..context import resolve_device
         from ..executor import Executor
         from ..ndarray.ndarray import zeros
@@ -407,7 +410,9 @@ class Symbol:
         if grad_req != "null":
             args_grad = {name: zeros(a.shape, ctx=ctx, dtype=a.dtype)
                          for name, a in args.items()}
-        return Executor(self, ctx, args, args_grad, grad_req, aux)
+        return Executor(self, ctx, args, args_grad, grad_req, aux,
+                        mesh=mesh, batch_names=batch_names,
+                        partition_rules=partition_rules)
 
     def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
              aux_states=None):

@@ -28,8 +28,8 @@ PORT = os.path.join(REPO, "mxnet_tpu_torch")
 #: names of the reference's XLA mechanics, which the port drops
 #: (CHANGES.md): the per-program cost attribution from XLA's cost analysis
 XLA_ONLY = {"serving.cost.<>.<>", "xla.cost.<>_per_step", "xla.memory.<>"}
-#: the reference's mesh and ZeRO gauges, which come with the multi-device
-#: slice (S5)
+#: the reference's mesh and ZeRO gauges (ported with the data-parallel
+#: slice: checked like every other name)
 MULTI_DEVICE = {"sharding.collective_bytes_modeled",
                 "sharding.collective_bytes_per_step",
                 "sharding.opt_state_bytes_per_device", "sharding.zero_stage"}
@@ -57,7 +57,12 @@ SLICE = ["fault.py", "elastic.py", "telemetry.py", "profiler.py",
          "gluon/rnn/__init__.py", "gluon/rnn/rnn_cell.py",
          "gluon/rnn/rnn_layer.py", "module/bucketing_module.py",
          # the operator registry's tail and mx.operator
-         "operator.py", "ops/random_ops.py", "ops/rcnn.py", "ops/tail.py"]
+         "operator.py", "ops/random_ops.py", "ops/rcnn.py", "ops/tail.py",
+         # the data-parallel plane
+         "optimizer.py", "gradient_compression.py", "parallel/__init__.py",
+         "parallel/mesh.py", "parallel/collectives.py",
+         "parallel/_shard_map.py", "parallel/sharding.py",
+         "parallel/data_parallel.py"]
 
 
 def _port_files():
@@ -160,7 +165,8 @@ def test_slice_sites_and_metrics_are_wired():
         assert site in sites, site
     for name in ("kv.push_keys", "kv.pull_keys", "kv.world_changes",
                  "data.batches", "io.records", "io.bytes", "io.torn_records",
-                 "io.shards_open", "io.epoch_prefetch"):
+                 "io.shards_open", "io.epoch_prefetch",
+                 "sharding.fallbacks") + tuple(sorted(MULTI_DEVICE)):
         assert any(metrics_lint._matches(name, n) for n in metrics), name
 
 
@@ -202,7 +208,7 @@ def test_every_slice_name_of_the_reference_exists_in_the_port(kind):
     scan = {"sites": _sites, "metrics": _metrics, "verdicts": _verdicts}[kind]
     ref, port = scan(REF_SLICE), scan(PORT_SLICE)
     if kind == "metrics":
-        missing = sorted(n for n in ref if n not in XLA_ONLY | MULTI_DEVICE
+        missing = sorted(n for n in ref if n not in XLA_ONLY
                          and
                          not any(metrics_lint._matches(n, p)
                                  for p in port))

@@ -67,16 +67,33 @@ def test_create_errors_match_reference():
 
 @pytest.mark.parametrize("name", ["dist_sync", "dist_async",
                                   "dist_device_sync", "dist_sync_device"])
-def test_dist_kinds_raise(name):
-    with pytest.raises(NotImplementedError, match="S5"):
-        tmx.kv.create(name)
+def test_dist_kinds_raise(name, monkeypatch):
+    """Without a coordinator each ``dist*`` kind is a world of one, as the
+    reference's: rank 0, one worker, and its push and pull (two values
+    summed into the store, no updater) pull what the reference's pull."""
+    monkeypatch.delenv("MXTPU_COORDINATOR", raising=False)
+    pulled = []
+    for mx in (_jmx(), tmx):
+        kv = mx.kv.create(name)
+        assert (kv.type, kv.rank, kv.num_workers) == (name, 0, 1)
+        kv.init("k", _nd(mx, np.ones(4, np.float32)))
+        kv.push("k", [_nd(mx, np.full(4, 2.0, np.float32)),
+                      _nd(mx, np.full(4, 0.5, np.float32))])
+        out = _nd(mx, np.zeros(4, np.float32))
+        kv.pull("k", out=out)
+        kv.barrier()
+        pulled.append(out.asnumpy())
+    np.testing.assert_array_equal(pulled[1], pulled[0])
 
 
 def test_s5_methods_raise():
+    """``set_gradient_compression`` works (2-bit, as the reference's; its
+    parity is ``tests/test_torch_gradient_compression.py``); only
+    ``row_sparse_pull`` still refuses, naming the sparse slice (S6)."""
     kv = tmx.kv.create("local")
-    with pytest.raises(NotImplementedError, match="S5"):
-        kv.set_gradient_compression({"type": "2bit"})
-    with pytest.raises(NotImplementedError, match="S5"):
+    kv.set_gradient_compression({"type": "2bit"})
+    assert kv._compressor.type == "2bit" and kv._compressor.threshold == 0.5
+    with pytest.raises(tmx.MXNetError, match="S6"):
         kv.row_sparse_pull("w", out=_nd(tmx, np.zeros(3)), row_ids=None)
 
 
